@@ -1,0 +1,42 @@
+"""Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
+
+| name | wrapper | replaces (TPU kernel) |
+| --- | --- | --- |
+| K1  | ``matching_kernel.fused_l2_top2`` | ``ops/pallas/matching_kernel.py:fused_l2_top2`` |
+| K1b | ``matching_kernel.fused_l2_top2_points`` | ``ops/pallas/matching_kernel.py:fused_l2_top2_points`` |
+| K2  | ``ransac_kernel.ransac_score_hypotheses`` | ``ops/pallas/ransac_kernel.py:ransac_score_hypotheses`` |
+| K3  | ``eightpoint_kernel.minimal_eight_point`` | ``ops/pallas/eightpoint_kernel.py:minimal_eight_point`` |
+
+Each wrapper launches its kernel for CUDA tensors (or raises), runs the plain
+version for CPU tensors, and counts its kernel launches in its ``launches``
+attribute.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def _wrappers():
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import minimal_eight_point
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2,
+        fused_l2_top2_points,
+    )
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import ransac_score_hypotheses
+
+    return {
+        "fused_l2_top2": fused_l2_top2,
+        "fused_l2_top2_points": fused_l2_top2_points,
+        "ransac_score_hypotheses": ransac_score_hypotheses,
+        "minimal_eight_point": minimal_eight_point,
+    }
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+All kernel sources in ``points_matching_tpu_torch/csrc/`` are compiled by
+``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C
+interface, loaded with ``ctypes``.  No PyTorch header is included, so the
+build takes seconds, not minutes.  The library lands in ``build/kernels/``
+at the repository root, named by a hash of the sources and flags, and is
+built at first use: a fresh checkout builds everything it needs.
+
+Flags: ``-O3``; no ``--use_fast_math`` (approximate sqrt/rsqrt/division
+would move the 8-point solve and the Sampson gate away from their plain
+versions); ``--fmad=false`` so that ``a*b + c`` written out in the K2/K3
+sources rounds twice, exactly like PyTorch's eager elementwise ops in the
+plain versions.  Kernels that want fused multiply-adds (K1's dot product)
+call ``fmaf`` explicitly, which the flag does not touch.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name → argtypes (pointers, ints, floats, then the stream)
+_SIGNATURES: Dict[str, list] = {
+    # q, t, t_mask, t_points, dist, idx, pts, B, N1, N2, D, P, bf16, stream
+    "pmt_l2_top2": [_P] * 7 + [_I] * 6 + [_P],
+    # F, p1, p2, mask, counts, B, H, N, tau2, stream
+    "pmt_ransac_score": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # sp1, sp2, F, count, stream
+    "pmt_eight_point": [_P] * 3 + [_I, _P],
+}
+
+last_build: Dict[str, object] = {}
+
+
+def _sources() -> List[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
+                       "on a machine with the CUDA toolkit")
+
+
+def library_path() -> str:
+    """Path of the library for the current sources (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libpmt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernel library if it is not built yet; return its path.
+    ``last_build`` records the seconds taken."""
+    so = library_path()
+    if os.path.exists(so):
+        last_build.update(path=so, seconds=0.0, cached=True)
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)          # atomic: a concurrent loader never sees half a file
+    last_build.update(path=so, seconds=seconds, cached=False)
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (once) and load the kernel library, with argtypes declared."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pmt_error_string.argtypes = [ctypes.c_int]
+    lib.pmt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its launch status)."""
+    if rc != 0:
+        msg = lib.pmt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

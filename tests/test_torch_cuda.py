@@ -1,0 +1,163 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions
+(the analogue of tests/test_tpu_compiled.py).  Needs an NVIDIA GPU and nvcc;
+everywhere else every test skips.  Imports no JAX, so it runs on a machine
+without it:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels are built with nvcc for sm_90a)")
+    from points_matching_tpu_torch.core.device import pin_fp32
+
+    pin_fp32()
+    return torch.device("cuda")
+
+
+def _unit(gen, *shape, dev):
+    x = torch.randn(*shape, generator=gen, device=dev)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,n1,n2", [(3, 200, 333), (2, 64, 700), (1, 5, 3)])
+def test_l2_top2_kernel_matches_plain(dev, compute_dtype, b, n1, n2):
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, fused_l2_top2_points, l2_top2_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, t = _unit(gen, b, n1, 64, dev=dev), _unit(gen, b, n2, 64, dev=dev)
+    t_mask = torch.rand(b, n2, generator=gen, device=dev) > 0.1
+    before = fused_l2_top2.launches
+    kd, ki = fused_l2_top2(q, t, t_mask, compute_dtype=compute_dtype)
+    assert fused_l2_top2.launches == before + 1
+    pd, pi = l2_top2_plain(q, t, t_mask, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    # fp32 sums in another order (FFMA chains vs cuBLAS): 1e-5 on distances ≤ 4
+    torch.testing.assert_close(kd, pd, atol=1e-5, rtol=0)
+    tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+    assert bool(((ki[..., 0] == pi[..., 0]) | tie).all())
+    pts = torch.rand(b, n2, 2, generator=gen, device=dev) * 900
+    _, ki2, kp = fused_l2_top2_points(q, t, t_mask, pts, compute_dtype=compute_dtype)
+    torch.testing.assert_close(ki2, ki, atol=0, rtol=0)
+    gathered = torch.gather(pts, 1, ki[..., :1].long().expand(-1, -1, 2))
+    assert torch.equal(kp, gathered)
+
+
+def test_l2_top2_kernel_masked_and_duplicates(dev):
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, l2_top2_plain)
+
+    q = torch.eye(8, 64, device=dev)[None]
+    t = torch.cat([q, q], 1)
+    full = torch.ones(1, 16, dtype=torch.bool, device=dev)
+    kd, ki = fused_l2_top2(q, t, full)
+    assert torch.equal(ki[0, :, 0].cpu(), torch.arange(8, dtype=torch.int32))
+    assert float(kd.abs().max()) < 1e-6
+    one = torch.zeros(1, 16, dtype=torch.bool, device=dev)
+    one[0, 5] = True
+    kd, ki = fused_l2_top2(q, t, one)
+    pd, pi = l2_top2_plain(q, t, one)
+    assert torch.equal(ki, pi)
+    assert bool((kd[..., 1] > 1e20).all())
+
+
+@pytest.mark.parametrize("b,h,n", [(2, 300, 777), (1, 33, 2500)])
+def test_ransac_score_kernel_matches_plain(dev, b, h, n):
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
+        ransac_score_hypotheses, ransac_score_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    F = torch.randn(b, h, 3, 3, generator=gen, device=dev) * 1e-3
+    p1 = torch.rand(b, n, 2, generator=gen, device=dev) * 640
+    p2 = p1 + 2 * torch.randn(b, n, 2, generator=gen, device=dev)
+    mask = torch.rand(b, n, generator=gen, device=dev) > 0.05
+    kc = ransac_score_hypotheses(F, p1, p2, mask, 1.5)
+    pc = ransac_score_plain(F, p1, p2, mask, 1.5)
+    torch.cuda.synchronize()
+    # same association order, --fmad=false: the same gates
+    assert torch.equal(kc, pc)
+
+
+def test_eight_point_kernel_matches_plain(dev):
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
+        minimal_eight_point, minimal_eight_point_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sp1 = torch.rand(3, 100, 8, 2, generator=gen, device=dev) * 640
+    sp2 = sp1 + torch.randn(3, 100, 8, 2, generator=gen, device=dev) * 5
+    kF = minimal_eight_point(sp1, sp2)
+    pF = minimal_eight_point_plain(sp1, sp2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kF).all())
+    # same operation order, --fmad=false, IEEE sqrt/div: the same bits; every
+    # sample held to 1e-5
+    assert float((kF - pF).abs().max()) <= 1e-5
+    spd = torch.full((1, 8, 2), 5.0, device=dev)
+    assert bool(torch.isfinite(minimal_eight_point(spd, spd)).all())
+
+
+def test_wrappers_raise_on_bad_inputs(dev):
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import minimal_eight_point
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import fused_l2_top2
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import ransac_score_hypotheses
+
+    q = torch.randn(1, 10, 64, device=dev)
+    m = torch.ones(1, 10, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        fused_l2_top2(q.transpose(1, 2).contiguous().transpose(1, 2), q, m)  # strided
+    with pytest.raises(ValueError):
+        fused_l2_top2(torch.randn(1, 10, 48, device=dev), torch.randn(1, 10, 48, device=dev), m)
+    with pytest.raises(TypeError):
+        fused_l2_top2(q.double(), q.double(), m)
+    with pytest.raises(ValueError):
+        fused_l2_top2(q, q.cpu(), m)
+    with pytest.raises(ValueError):
+        ransac_score_hypotheses(torch.randn(1, 4, 3, 3, device=dev),
+                                torch.randn(1, 10, 2, device=dev)[:, ::2],
+                                torch.randn(1, 5, 2, device=dev),
+                                torch.ones(1, 5, dtype=torch.bool, device=dev), 1.0)
+    with pytest.raises(ValueError):
+        minimal_eight_point(torch.randn(4, 7, 2, device=dev), torch.randn(4, 7, 2, device=dev))
+
+
+def test_two_view_pipeline_gpu_matches_cpu(dev):
+    import dataclasses
+
+    from points_matching_tpu_torch.core.config import (
+        DetectorConfig, MatcherConfig, RansacConfig, TwoViewConfig)
+    from points_matching_tpu_torch.data.render import render_sequence
+    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
+
+    cfg = TwoViewConfig(
+        detector=DetectorConfig(max_keypoints=128),
+        matcher=MatcherConfig(filter="ratio", ratio=0.85),
+        ransac=RansacConfig(num_hypotheses=256), use_ransac=True)
+    imgs, *_ = render_sequence(num_frames=2, num_landmarks=150, image_size=(256, 192))
+    g1, g2 = (torch.from_numpy(np.ascontiguousarray(i)).to(dev) for i in imgs)
+    kernels.reset_launch_counts()
+    res = two_view_pipeline(g1, g2, torch.Generator(device=dev).manual_seed(0), cfg)
+    counts = kernels.launch_counts()
+    assert counts["fused_l2_top2"] == counts["minimal_eight_point"] == \
+        counts["ransac_score_hypotheses"] == 1
+    samples = sample_minimal_points(torch.Generator(device=dev).manual_seed(1),
+                                    res.matches.mask, 256, 8, (res.p1, res.p2))
+    gpu = two_view_pipeline(g1, g2, None, cfg, samples=samples)
+    cpu = two_view_pipeline(g1.cpu(), g2.cpu(), None, cfg,
+                            samples=tuple(s.cpu() for s in samples))
+    assert int(gpu.kps1.mask.sum()) == int(cpu.kps1.mask.sum())
+    assert abs(int(gpu.matches.mask.sum()) - int(cpu.matches.mask.sum())) <= 2
+    assert abs(int(gpu.estimate.num_inliers) - int(cpu.estimate.num_inliers)) <= 3
+    assert abs(float((gpu.estimate.F.cpu() * cpu.estimate.F).sum())) >= 0.99
+    assert dataclasses.is_dataclass(gpu) and gpu.estimate.F.is_cuda

@@ -1,0 +1,112 @@
+"""Parity of the PyTorch port's frontend (bilinear sampling, Hessian
+response, keypoint detection, SURF description) with the JAX package on
+rendered images."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from points_matching_tpu.core.config import DetectorConfig as JDetectorConfig  # noqa: E402
+from points_matching_tpu.data.render import render_sequence as j_render  # noqa: E402
+from points_matching_tpu.ops import descriptors as jdesc  # noqa: E402
+from points_matching_tpu.ops import detect as jdet  # noqa: E402
+from points_matching_tpu.ops.sampling import bilinear_sample as j_sample  # noqa: E402
+from points_matching_tpu_torch.core.convert import config_from_dict, keypoints_from_numpy  # noqa: E402
+from points_matching_tpu_torch.core.config import DetectorConfig  # noqa: E402
+from points_matching_tpu_torch.data.render import render_sequence  # noqa: E402
+from points_matching_tpu_torch.ops.descriptors import surf_describe  # noqa: E402
+from points_matching_tpu_torch.ops.detect import detect_keypoints, hessian_response  # noqa: E402
+from points_matching_tpu_torch.ops.sampling import bilinear_sample  # noqa: E402
+
+
+# jit the JAX references: eager dispatch is slower than one compile
+j_detect = jax.jit(jdet.detect_keypoints, static_argnames=("config",))
+j_describe = jax.jit(jdesc.surf_describe)
+j_hessian = jax.jit(jdet.hessian_response, static_argnames=("sigma",))
+
+
+@pytest.fixture(scope="module")
+def image():
+    imgs, *_ = j_render(num_frames=1, num_landmarks=120, image_size=(160, 128), seed=1)
+    return np.array(imgs[0])
+
+
+def test_render_copy_is_identical():
+    a, pa, qa, Ka = j_render(num_frames=2, num_landmarks=40, image_size=(96, 64), seed=2)
+    b, pb, qb, Kb = render_sequence(num_frames=2, num_landmarks=40, image_size=(96, 64),
+                                    seed=2)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(pa, pb)
+    assert Ka == Kb
+
+
+def test_bilinear_sample_matches_jax_including_fringe(image):
+    H, W = image.shape
+    rng = np.random.RandomState(0)
+    xy = np.concatenate([
+        rng.uniform(-1.5, W + 0.5, (400, 2)).astype(np.float32) * [1, H / W],
+        np.array([[-0.25, 0.0], [1.0, -0.5], [-0.75, -0.75], [W - 0.5, H - 1.0]],
+                 np.float32),
+    ]).astype(np.float32)
+    jv = np.asarray(j_sample(jnp.asarray(image), jnp.asarray(xy)))
+    tv = bilinear_sample(torch.from_numpy(image), torch.from_numpy(xy)).numpy()
+    # pixel values ≤ 255: 1e-4 absolute is f32 rounding of the blend
+    np.testing.assert_allclose(tv, jv, atol=1e-4)
+    # the [-1, 0) fringe blends the fill (0) with pixel 0, not pixel 1
+    np.testing.assert_allclose(tv[400], 0.75 * image[0, 0], atol=1e-4)
+    np.testing.assert_allclose(tv[401], 0.5 * image[0, 1], atol=1e-4)
+
+
+@pytest.mark.parametrize("sigma", [1.2, 3.39])
+def test_hessian_response_matches_jax(image, sigma):
+    jr = np.asarray(j_hessian(jnp.asarray(image), sigma))
+    tr = hessian_response(torch.from_numpy(image), sigma).numpy()
+    # rtol 1e-4; the determinant cancels (Lxx·Lyy − (0.9·Lxy)²), so values
+    # near 0 compare against the map's scale
+    np.testing.assert_allclose(tr, jr, rtol=1e-4, atol=1e-4 * np.abs(jr).max())
+
+
+def _detector_config():
+    return JDetectorConfig(kind="hessian", threshold=8000.0, max_keypoints=96,
+                           num_octaves=3)
+
+
+def test_detect_keypoints_matches_jax_as_sets(image):
+    jcfg = _detector_config()
+    jk = j_detect(jnp.asarray(image), jcfg)
+    tk = detect_keypoints(torch.from_numpy(image),
+                          config_from_dict(dataclasses.asdict(jcfg), DetectorConfig))
+    jm, tm = np.asarray(jk.mask), tk.mask.numpy()
+    assert tm.sum() == jm.sum() > 20
+    jxy, txy = np.asarray(jk.xy)[jm], tk.xy.numpy()[tm]
+    # top-k tie order may differ: compare as sets, nearest neighbour ≤ 1e-3 px
+    dist = np.linalg.norm(jxy[:, None] - txy[None], axis=-1)
+    near = dist.min(1) < 1e-3
+    assert near.mean() >= 0.95, near.mean()
+    # matched keypoints carry the same scale, score and orientation
+    j_idx, t_idx = np.nonzero(near)[0], dist.argmin(1)[near]
+    np.testing.assert_array_equal(tk.scale.numpy()[tm][t_idx], np.asarray(jk.scale)[jm][j_idx])
+    np.testing.assert_allclose(tk.score.numpy()[tm][t_idx], np.asarray(jk.score)[jm][j_idx],
+                               rtol=1e-4)
+    dang = np.angle(np.exp(1j * (tk.angle.numpy()[tm][t_idx]
+                                 - np.asarray(jk.angle)[jm][j_idx])))
+    assert np.abs(dang).max() < 1e-3
+
+
+def test_surf_describe_on_same_keypoints(image):
+    jk = j_detect(jnp.asarray(image), _detector_config())
+    jd = j_describe(jnp.asarray(image), jk)
+    td = surf_describe(torch.from_numpy(image), keypoints_from_numpy(jk))
+    np.testing.assert_array_equal(td.mask.numpy(), np.asarray(jd.mask))
+    # unit-norm 64-d rows from f32 sums of weighted pixel differences
+    np.testing.assert_allclose(td.data.numpy(), np.asarray(jd.data), atol=1e-4)
+
+
+def test_other_detector_kinds_not_ported_yet(image):
+    with pytest.raises(NotImplementedError):
+        detect_keypoints(torch.from_numpy(image), DetectorConfig(kind="fast"))

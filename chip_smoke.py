@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two-view main path once on one CUDA GPU.
+"""Drive the PyTorch port's two-view main paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,33 @@ Phases, in order, one line each; any failure exits non-zero before the
 result line:
 
 1. device  — ``nvidia-smi`` name and power limit; CUDA present; TF32 off.
-2. build   — compile every CUDA kernel of the path from ``csrc/`` (nvcc,
+2. build   — compile every CUDA kernel of the paths from ``csrc/`` (nvcc,
              sm_90a) and report the seconds.
 3. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (64 pairs × 512 × 512 × 64 for K1/K1b,
+             the main paths' shapes (64 pairs × 512 × 512 × 64 for K1/K1b,
              64 × 512 hypotheses × 512 points for K2, 64 × 512 samples for
-             K3): errors, agreement, and CUDA-event times after a warm-up.
-4. slice   — a rendered 993×660 pair through ``two_view_pipeline`` with the
-             demo's ``--config ransac`` settings (512 keypoints, 512
-             hypotheses) and ``match_descriptors_points``; the kernels'
-             launch counters must rise; the output must be sane and agree
-             with the same pipeline run on the CPU (plain versions) with
-             the same RANSAC samples.
+             K3, 64 pairs × 1024 × 1024 × 8 words for K4): errors,
+             agreement, CUDA-event times after a warm-up, and each kernel's
+             bound (the least time the card could take for the same work).
+4. slices  — a rendered 993×660 pair through ``two_view_pipeline`` twice:
+             the SURF slice with the demo's ``--config ransac`` settings
+             (512 keypoints, 512 hypotheses, plus ``match_descriptors_points``)
+             and the ORB slice, ``orb_default_config()`` (FAST → rotated
+             BRIEF → Hamming match → RANSAC F; 1024 keypoints, 512
+             hypotheses).  The launch counters are set to 0 just before each
+             slice and read just after; every kernel of the slice must have
+             launched.  The output must be sane and agree with the same
+             pipeline run on the CPU (plain versions) with the same RANSAC
+             samples.
 5. result  — one JSON line of per-kernel numbers, then the last line
              ``{"ok": true, "device": {...}}``.
+
+Bounds use the card's published peaks (NVIDIA H100 SXM data sheet): 3.35
+TB/s of device memory and 67 TFLOP/s fp32, an FMA counted as two flops, so
+33.5 T fp32 instructions/s.  Kernels built with ``--fmad=false`` (K2, K3)
+execute one instruction per multiply or add.  Population counts (K4) retire
+at 16 per clock per SM against 128 fp32 lanes (the CUDA programming guide's
+throughput table for compute capability 9.0): 33.5e12 × 16/128 per second.
 
 Imports nothing of JAX.  Writes no files besides the kernel build.
 """
@@ -35,6 +48,12 @@ import sys
 import time
 
 import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12                 # an FMA is two flops
+FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
+POPC_PER_S = FP32_INSTR_PER_S * 16 / 128
+BIG = 1e30
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -57,6 +76,42 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time for the work: the larger of bytes over the memory
+    rate and operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _elementwise_ops(fn, *args) -> int:
+    """Scalar operations of a plain version written as elementwise tensor
+    ops (K2, K3): the largest element count of each arithmetic,
+    comparison or select op it dispatches.  Run on one sample or cell, it
+    counts the kernel's per-item instructions, since the plain versions
+    repeat the kernels' operation chains."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counted = {"add", "sub", "mul", "div", "reciprocal", "sqrt", "abs", "neg",
+               "clamp_min", "clamp_max", "maximum", "minimum", "where", "isfinite",
+               "gt", "lt", "ge", "le", "eq", "ne", "bitwise_and", "sum"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in counted:
+                sizes = [x.numel() for x in (*args, out) if hasattr(x, "numel")]
+                self.n += max(sizes)
+            return out
+
+    with Count() as c:
+        fn(*args)
+    return c.n
 
 
 def _scenes(B: int, N: int, gen, dev, outlier_frac: float = 0.3, noise: float = 0.5):
@@ -88,6 +143,97 @@ def _scenes(B: int, N: int, gen, dev, outlier_frac: float = 0.3, noise: float = 
     mask = torch.ones(B, N, dtype=torch.bool, device=dev)
     mask[:, -5:] = False
     return p1.contiguous(), p2.contiguous(), mask
+
+
+def _binary_descriptors(B: int, N: int, W: int, gen, dev):
+    """Random packed descriptors with what matching meets in use: exact
+    duplicates of train rows, near-duplicates (3 flipped bits on average),
+    train rows repeated (tied best and runner-up), ~5 % invalid train rows."""
+    import torch
+
+    from points_matching_tpu_torch.ops.descriptors import pack_bits
+
+    bits = W * 32
+    t = pack_bits(torch.rand(B, N, bits, generator=gen, device=dev) < 0.5)
+    q = pack_bits(torch.rand(B, N, bits, generator=gen, device=dev) < 0.5)
+    t[:, N - N // 16:] = t[:, :N // 16]                          # repeated train rows
+    src = torch.rand(B, N, generator=gen, device=dev).argsort(-1)[:, :N // 2]
+    picked = torch.gather(t, 1, src[..., None].expand(-1, -1, W))
+    flips = pack_bits(torch.rand(B, N // 4, bits, generator=gen, device=dev) < 3 / bits)
+    q[:, :N // 4] = picked[:, :N // 4]                           # exact duplicates
+    q[:, N // 4:N // 2] = picked[:, N // 4:] ^ flips              # near-duplicates
+    t_mask = torch.rand(B, N, generator=gen, device=dev) > 0.05
+    return q.contiguous(), t.contiguous(), t_mask
+
+
+def _check_estimate(tag: str, res, n_kp: int, min_matches: int) -> tuple:
+    """Sanity of one slice's output: keypoint counts, matches, inliers ≥
+    half the matches, F finite / unit-norm / rank 2, output shapes."""
+    import torch
+
+    n_kp1, n_kp2 = int(res.kps1.mask.sum()), int(res.kps2.mask.sum())
+    n_m = int(res.matches.mask.sum())
+    n_in = int(res.estimate.num_inliers)
+    F = res.estimate.F.double().cpu()
+    sv = torch.linalg.svdvals(F)
+    print(f"slice {tag}: keypoints {n_kp1}/{n_kp2}, matches {n_m}, inliers {n_in}, "
+          f"residual {float(res.estimate.residual_mean):.4g}, |F| {float(F.norm()):.6f}, "
+          f"s3/s1 {float(sv[2] / sv[0]):.3g}")
+    _check(n_kp1 >= n_kp and n_kp2 >= n_kp, f"{tag}: keypoints below {n_kp}")
+    _check(n_m >= min_matches, f"{tag}: fewer than {min_matches} matches")
+    _check(bool(torch.isfinite(F).all()) and abs(float(F.norm()) - 1.0) < 1e-4,
+           f"{tag}: F not finite / not unit norm")
+    _check(float(sv[2]) < 1e-4 * float(sv[0]), f"{tag}: F not rank 2")
+    _check(2 * n_in >= n_m, f"{tag}: inliers below half the matches")
+    cap = res.kps1.capacity
+    _check(res.p1.shape == (cap, 2) and res.epilines2.shape == (cap, 3)
+           and bool(torch.isfinite(res.epilines2).all()), f"{tag}: bad output shapes")
+    return n_kp1, n_m, n_in
+
+
+def _gpu_vs_cpu(tag: str, im1, im2, cfg, res, dev) -> None:
+    """The same pair through the CPU (plain versions) with the same RANSAC
+    samples: equal keypoint counts, matches within 2 % (≥ 2), inliers
+    within 5 % (≥ 2), |⟨F_gpu, F_cpu⟩| ≥ 0.99."""
+    import torch
+
+    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
+    from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
+
+    samples = sample_minimal_points(torch.Generator(device=dev).manual_seed(1),
+                                    res.matches.mask, cfg.ransac.num_hypotheses, 8,
+                                    (res.p1, res.p2))
+    gpu = two_view_pipeline(im1, im2, None, cfg, samples=samples)
+    cpu = two_view_pipeline(im1.cpu(), im2.cpu(), None, cfg,
+                            samples=tuple(s.cpu() for s in samples))
+    cos = abs(float((gpu.estimate.F.cpu() * cpu.estimate.F).sum()))
+    g = (int(gpu.kps1.mask.sum()), int(gpu.matches.mask.sum()),
+         int(gpu.estimate.num_inliers))
+    c = (int(cpu.kps1.mask.sum()), int(cpu.matches.mask.sum()),
+         int(cpu.estimate.num_inliers))
+    print(f"slice {tag}: GPU vs CPU (kp1, matches, inliers) {g} vs {c}, "
+          f"|<F_gpu, F_cpu>| {cos:.6f}")
+    _check(g[0] == c[0] and abs(g[1] - c[1]) <= max(2, c[1] // 50)
+           and abs(g[2] - c[2]) <= max(2, c[2] // 20) and cos >= 0.99,
+           f"GPU and CPU runs of the {tag} slice disagree")
+
+
+def _time_pipeline(tag: str, im1, im2, cfg, dev) -> float:
+    import torch
+
+    from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
+
+    torch.cuda.synchronize()
+    times = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        two_view_pipeline(im1, im2, torch.Generator(device=dev).manual_seed(i), cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    print(f"slice {tag}: two_view_pipeline 993x660 {cfg.detector.max_keypoints} kp "
+          f"{cfg.ransac.num_hypotheses} hyp: {med:.3f} ms/pair (median of 5; runs {times})")
+    return med
 
 
 def main() -> int:
@@ -124,6 +270,8 @@ def main() -> int:
 
     from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
         minimal_eight_point, minimal_eight_point_plain)
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
+        fused_hamming_top2, hamming_top2_plain, popcount32)
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
         fused_l2_top2, fused_l2_top2_points, l2_top2_plain, l2_top2_points_plain)
     from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
@@ -133,12 +281,19 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, D, H = 64, 512, 64, 512
     report = {}
+    # no single PyTorch call computes any of K1-K4 (a fused top-2 over
+    # L2 or Hamming distances, a batch of Sampson-gated counts, a batch of
+    # rank-2 minimal 8-point solves), so every library_ms is null
 
     q = torch.randn(B, N, D, generator=gen, device=dev)
     q = q / q.norm(dim=-1, keepdim=True)
     t = torch.randn(B, N, D, generator=gen, device=dev)
     t = t / t.norm(dim=-1, keepdim=True)
     t_mask = torch.rand(B, N, generator=gen, device=dev) > 0.05
+    # K1 moves q and t (f32), t_mask, dist (f32) and idx (i32); one FMA per
+    # (query, train, dim) cell
+    k1_bytes = 4 * B * 2 * N * D + B * N + 8 * B * N * 2
+    k1_bound = _bound(k1_bytes, 2 * B * N * N * D, FP32_FLOPS_PER_S)
     # both dtypes: the kernel and the plain version round the same operands
     # and differ only in fp32 summation order (measured on the card: < 1e-6)
     for dtype, dist_tol in (("f32", 1e-5), ("bf16", 1e-5)):
@@ -152,9 +307,10 @@ def main() -> int:
         pms = _cuda_ms(lambda: l2_top2_plain(q, t, t_mask, compute_dtype=dtype))
         print(f"kernel K1 {dtype}: max|dist err| {err:.3g} (tol {dist_tol:g}), "
               f"1-NN index mismatches off near-ties {idx_bad}, "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms")
+              f"{ms:.4f} ms vs plain {pms:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms")
         _check(err <= dist_tol and idx_bad == 0, f"K1 {dtype} disagrees with plain")
-        report[f"K1_{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+        report[f"K1_{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **k1_bound,
+                                     library_ms=None)
 
     pts = torch.rand(B, N, 2, generator=gen, device=dev) * torch.tensor(
         [993.0, 660.0], device=dev)
@@ -166,10 +322,12 @@ def main() -> int:
     pts_exact = bool(torch.equal(kp, gathered))
     ms = _cuda_ms(lambda: fused_l2_top2_points(q, t, t_mask, pts))
     pms = _cuda_ms(lambda: l2_top2_points_plain(q, t, t_mask, pts))
+    bound = _bound(k1_bytes + 4 * B * N * 2 * 2, 2 * B * N * N * D, FP32_FLOPS_PER_S)
     print(f"kernel K1b: max|dist err| {err:.3g} (tol 1e-05), "
-          f"pts == t_points[idx] exactly: {pts_exact}, {ms:.4f} ms vs plain {pms:.4f} ms")
+          f"pts == t_points[idx] exactly: {pts_exact}, {ms:.4f} ms vs plain {pms:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms")
     _check(err <= 1e-5 and pts_exact, "K1b disagrees with plain")
-    report["K1b"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    report["K1b"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None)
 
     p1, p2, pmask = _scenes(B, N, gen, dev)
     # 8 distinct correspondences per hypothesis
@@ -185,13 +343,18 @@ def main() -> int:
     finite = bool(torch.isfinite(kF).all())
     ms = _cuda_ms(lambda: minimal_eight_point(sp1, sp2))
     pms = _cuda_ms(lambda: minimal_eight_point_plain(sp1, sp2), iters=3, warmup=1)
+    # one instruction per scalar op (--fmad=false): counted on one sample
+    per_sample = _elementwise_ops(minimal_eight_point_plain, sp1[:1, :1].cpu(),
+                                  sp2[:1, :1].cpu())
+    bound = _bound(B * H * (2 * 8 * 2 + 9) * 4, B * H * per_sample, FP32_INSTR_PER_S)
     print(f"kernel K3: max|F err| {err:.3g} (tol 1e-05) over all {kF.shape[0] * kF.shape[1]} "
-          f"samples, finite {finite}, {ms:.4f} ms vs plain {pms:.4f} ms")
+          f"samples, finite {finite}, {ms:.4f} ms vs plain {pms:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({per_sample} fp32 ops per sample)")
     # the plain version is the kernel's chain in the kernel's operation order
     # (--fmad=false, IEEE sqrt and division): the two agree to the last bit
     # on the card, so every sample is held to 1e-5
     _check(finite and err <= 1e-5, "K3 disagrees with plain")
-    report["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    report["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None)
 
     kc = ransac_score_hypotheses(kF, p1, p2, pmask, 1.5)
     pc = ransac_score_plain(kF, p1, p2, pmask, 1.5)
@@ -200,30 +363,68 @@ def main() -> int:
     same = float((kc == pc).float().mean())
     ms = _cuda_ms(lambda: ransac_score_hypotheses(kF, p1, p2, pmask, 1.5))
     pms = _cuda_ms(lambda: ransac_score_plain(kF, p1, p2, pmask, 1.5))
+    per_cell = _elementwise_ops(ransac_score_plain, kF[:1, :1].cpu(), p1[:1, :1].cpu(),
+                                p2[:1, :1].cpu(), pmask[:1, :1].cpu(), 1.5)
+    bound = _bound(B * H * (9 + 1) * 4 + B * N * (2 * 2 * 4 + 1), B * H * N * per_cell,
+                   FP32_INSTR_PER_S)
     print(f"kernel K2: max|count diff| {cdiff} (tol 0), equal share {same:.4f}, "
-          f"max count {int(kc.max())}/{N}, {ms:.4f} ms vs plain {pms:.4f} ms")
+          f"max count {int(kc.max())}/{N}, {ms:.4f} ms vs plain {pms:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({per_cell} fp32 ops per cell)")
     # same association order and --fmad=false: the same gates, every count equal
     _check(cdiff == 0 and int(kc.max()) > N // 2, "K2 disagrees with plain")
-    report["K2"] = dict(max_abs_err=float(cdiff), ms=ms, plain_ms=pms)
+    report["K2"] = dict(max_abs_err=float(cdiff), ms=ms, plain_ms=pms, **bound,
+                        library_ms=None)
 
-    # -- 4. the slice: the port's main path ------------------------------------
-    from points_matching_tpu_torch.core.config import (
-        MatcherConfig, RansacConfig, surf_parity_config)
+    # K4: the ORB slice's shapes (1024 keypoints, 256-bit descriptors)
+    HB, HN, HW = 64, 1024, 8
+    hq, ht, hmask = _binary_descriptors(HB, HN, HW, gen, dev)
+    kd, ki = fused_hamming_top2(hq, ht, hmask)
+    pd, pi = hamming_top2_plain(hq, ht, hmask)
+    torch.cuda.synchronize()
+    err = float((kd - pd).abs().max())
+    col0 = bool(torch.equal(ki[..., 0], pi[..., 0]))
+    # column 1: a valid train row other than column 0 at the runner-up
+    # distance (where there is one; else the plain version's sentinel row)
+    i2 = ki[..., 1].long()
+    t_at = torch.gather(ht, 1, i2[..., None].expand(-1, -1, HW))
+    d_at = popcount32(hq ^ t_at).sum(-1).to(torch.float32)
+    has2 = pd[..., 1] < BIG
+    col1 = torch.where(has2, (d_at == kd[..., 1]) & torch.gather(hmask, 1, i2)
+                       & (i2 != ki[..., 0].long()), ki[..., 1] == pi[..., 1])
+    col1_ok = bool(col1.all())
+    col1_same = float((ki[..., 1] == pi[..., 1]).float().mean())
+    ties = float((pd[..., 0] == pd[..., 1]).float().mean())
+    ms = _cuda_ms(lambda: fused_hamming_top2(hq, ht, hmask))
+    pms = _cuda_ms(lambda: hamming_top2_plain(hq, ht, hmask), iters=3, warmup=1)
+    bound = _bound(4 * HB * 2 * HN * HW + HB * HN + 8 * HB * HN * 2, HB * HN * HN * HW,
+                   POPC_PER_S)
+    # the ORB slice matches one pair per launch: 8 blocks of 128 threads
+    one_ms = _cuda_ms(lambda: fused_hamming_top2(hq[:1], ht[:1], hmask[:1]))
+    print(f"kernel K4: max|dist err| {err:.3g} (tol 0), column 0 equal {col0}, "
+          f"column 1 attains the runner-up {col1_ok} (equal to plain on "
+          f"{col1_same:.4f}), tied best/runner-up on {ties:.4f} of rows, "
+          f"{ms:.4f} ms vs plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms; "
+          f"one pair {one_ms:.4f} ms (bound {bound['bound_ms'] / HB:.4f} ms)")
+    # integer counts: the distances and the 1-NN index are exact
+    _check(err == 0.0 and col0 and col1_ok, "K4 disagrees with plain")
+    report["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None,
+                        ms_one_pair=one_ms)
+
+    # -- 4. the slices: the port's main paths -----------------------------------
+    from points_matching_tpu_torch.core.config import named_config
     from points_matching_tpu_torch.data.render import render_sequence
-    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
     from points_matching_tpu_torch.ops.descriptors import extract_descriptors
     from points_matching_tpu_torch.ops.matching import match_descriptors_points
     from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
 
-    cfg = dataclasses.replace(surf_parity_config(),
-                              matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.85),
-                              ransac=RansacConfig(), use_ransac=True)
     imgs, *_ = render_sequence(num_frames=2, num_landmarks=500, image_size=(993, 660),
                                seed=0)
     im1, im2 = (torch.from_numpy(np.ascontiguousarray(i)).to(dev) for i in imgs)
+
+    cfg = named_config("ransac")
     pcfg = dataclasses.replace(cfg.matcher, compact=False)
 
-    def run(seed: int):
+    def run_surf(seed: int):
         res = two_view_pipeline(im1, im2, torch.Generator(device=dev).manual_seed(seed), cfg)
         # the bench head's matcher: query-order matches + matched points (K1b)
         d1 = extract_descriptors(im1, res.kps1, cfg.descriptor)
@@ -231,83 +432,77 @@ def main() -> int:
         m, mp = match_descriptors_points(d1, d2, res.kps2.xy.contiguous(), pcfg)
         return res, m, mp
 
-    run(0)                      # warm-up (cuDNN algorithm choice, allocator)
+    run_surf(0)                 # warm-up (cuDNN algorithm choice, allocator)
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    res, mq, mpts = run(0)
+    res, mq, mpts = run_surf(0)
     torch.cuda.synchronize()
-    launches = K.launch_counts()
-    print(f"slice: launches on the main path {launches}")
-    _check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
-
-    n_kp1, n_kp2 = int(res.kps1.mask.sum()), int(res.kps2.mask.sum())
-    n_m = int(res.matches.mask.sum())
-    n_in = int(res.estimate.num_inliers)
-    F = res.estimate.F.double().cpu()
-    sv = torch.linalg.svdvals(F)
-    print(f"slice: keypoints {n_kp1}/{n_kp2}, matches {n_m}, inliers {n_in}, "
-          f"residual {float(res.estimate.residual_mean):.4g}, |F| {float(F.norm()):.6f}, "
-          f"s3/s1 {float(sv[2] / sv[0]):.3g}")
-    _check(n_kp1 > 0 and n_kp2 > 0, "no keypoints")
-    _check(n_m >= 8, "fewer than 8 matches")
-    _check(bool(torch.isfinite(F).all()) and abs(float(F.norm()) - 1.0) < 1e-4,
-           "F not finite / not unit norm")
-    _check(float(sv[2]) < 1e-4 * float(sv[0]), "F not rank 2")
-    _check(2 * n_in >= n_m, "inliers below half the matches")
-    _check(res.p1.shape == (512, 2) and res.epilines2.shape == (512, 3)
-           and bool(torch.isfinite(res.epilines2).all()), "bad output shapes")
+    surf_launches = K.launch_counts()
+    print(f"slice surf: launches on the main path {surf_launches}")
+    surf_kernels = ("fused_l2_top2", "fused_l2_top2_points", "minimal_eight_point",
+                    "ransac_score_hypotheses")
+    _check(all(surf_launches[k] > 0 for k in surf_kernels),
+           "a kernel of the SURF path never launched")
+    _, n_m, _ = _check_estimate("surf", res, 1, 8)
     # match_descriptors_points: same matches as the pipeline's matcher, and
     # pts[i] == kps2.xy[train_idx[i]] on every row
     _check(int(mq.mask.sum()) == n_m, "match_descriptors_points disagrees")
     _check(bool(torch.equal(mpts, res.kps2.xy[mq.train_idx.long()])),
            "matched-point invariant broken")
+    _gpu_vs_cpu("surf", im1, im2, cfg, res, dev)
+    _time_pipeline("surf", im1, im2, cfg, dev)
 
-    # the same pair through the CPU (plain versions), same RANSAC samples
-    samples = sample_minimal_points(torch.Generator(device=dev).manual_seed(1),
-                                    res.matches.mask, cfg.ransac.num_hypotheses, 8,
-                                    (res.p1, res.p2))
-    gpu = two_view_pipeline(im1, im2, None, cfg, samples=samples)
-    cpu = two_view_pipeline(im1.cpu(), im2.cpu(), None, cfg,
-                            samples=tuple(s.cpu() for s in samples))
-    cos = abs(float((gpu.estimate.F.cpu() * cpu.estimate.F).sum()))
-    g = (int(gpu.kps1.mask.sum()), int(gpu.matches.mask.sum()),
-         int(gpu.estimate.num_inliers))
-    c = (int(cpu.kps1.mask.sum()), int(cpu.matches.mask.sum()),
-         int(cpu.estimate.num_inliers))
-    print(f"slice: GPU vs CPU (kp1, matches, inliers) {g} vs {c}, |<F_gpu, F_cpu>| {cos:.6f}")
-    _check(g[0] == c[0] and abs(g[1] - c[1]) <= max(2, c[1] // 50)
-           and abs(g[2] - c[2]) <= max(2, c[2] // 20) and cos >= 0.99,
-           "GPU and CPU runs of the slice disagree")
+    ocfg = named_config("orb")
 
+    def run_orb(seed: int):
+        return two_view_pipeline(im1, im2, torch.Generator(device=dev).manual_seed(seed),
+                                 ocfg)
+
+    run_orb(0)                  # warm-up
     torch.cuda.synchronize()
-    times = []
-    for i in range(5):
-        t0 = time.perf_counter()
-        two_view_pipeline(im1, im2, torch.Generator(device=dev).manual_seed(i), cfg)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(f"slice: two_view_pipeline 993x660 512 kp 512 hyp: "
-          f"{float(np.median(times)):.3f} ms/pair (median of 5; runs {times})")
+    K.reset_launch_counts()
+    res = run_orb(0)
+    torch.cuda.synchronize()
+    orb_launches = K.launch_counts()
+    print(f"slice orb: launches on the main path {orb_launches}")
+    orb_kernels = ("fused_hamming_top2", "minimal_eight_point", "ransac_score_hypotheses")
+    _check(all(orb_launches[k] > 0 for k in orb_kernels),
+           "a kernel of the ORB path never launched")
+    _check(orb_launches["fused_l2_top2"] == 0, "the ORB path launched the L2 kernel")
+    _check(res.kps1.capacity == ocfg.detector.max_keypoints, "ORB capacity")
+    _check_estimate("orb", res, ocfg.detector.max_keypoints, 64)
+    _gpu_vs_cpu("orb", im1, im2, ocfg, res, dev)
+    _time_pipeline("orb", im1, im2, ocfg, dev)
 
     # -- 5. result -----------------------------------------------------------
     src = "points_matching_tpu_torch/csrc/"
     pallas = "points_matching_tpu/ops/pallas/"
+
+    def launches(name):
+        return dict(launches=surf_launches[name] + orb_launches[name],
+                    launches_by_path=dict(surf=surf_launches[name],
+                                          orb=orb_launches[name]))
+
     kernels = [
         dict(name="fused_l2_top2", route="cuda", source=src + "matching_top2.cu",
              replaces=pallas + "matching_kernel.py:192",
-             launches=launches["fused_l2_top2"], **report["K1_f32"],
+             **launches("fused_l2_top2"), **report["K1_f32"],
              bf16={k: report["K1_bf16"][k] for k in ("max_abs_err", "ms", "plain_ms")}),
         dict(name="fused_l2_top2_points", route="cuda", source=src + "matching_top2.cu",
              replaces=pallas + "matching_kernel.py:275",
-             launches=launches["fused_l2_top2_points"], **report["K1b"]),
+             **launches("fused_l2_top2_points"), **report["K1b"]),
         dict(name="ransac_score_hypotheses", route="cuda", source=src + "ransac_score.cu",
              replaces=pallas + "ransac_kernel.py:122",
-             launches=launches["ransac_score_hypotheses"], **report["K2"]),
+             **launches("ransac_score_hypotheses"), **report["K2"]),
         dict(name="minimal_eight_point", route="cuda", source=src + "eightpoint.cu",
              replaces=pallas + "eightpoint_kernel.py:240",
-             launches=launches["minimal_eight_point"], **report["K3"]),
+             **launches("minimal_eight_point"), **report["K3"]),
+        dict(name="fused_hamming_top2", route="cuda", source=src + "hamming_top2.cu",
+             replaces=pallas + "hamming.py:115",
+             **launches("fused_hamming_top2"), **report["K4"]),
     ]
-    _check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite timing")
+    _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
+           "non-finite timing or a kernel that never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Per-stage times and a torch.profiler summary of the PyTorch port's
 two-view slice on one CUDA GPU: a rendered 993×660 pair, the demo's
-``--config ransac`` settings (512 keypoints, 512 hypotheses).
+``--config ransac`` settings (512 keypoints, 512 hypotheses) or, with
+``--config orb``, BASELINE config 0 (FAST + rotated BRIEF + Hamming match,
+1024 keypoints, 512 hypotheses).
 
 Stages are timed on the host clock with a ``torch.cuda.synchronize()`` after
 each (detect ×2, describe ×2, match, RANSAC, audit + epilines), median of
@@ -10,11 +12,11 @@ five pipeline runs under ``torch.profiler`` for the device-busy share and
 the kernels that take the device time.
 
 Usage:
-  python examples/profile_two_view_torch.py
+  python examples/profile_two_view_torch.py [--config ransac|orb]
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import dataclasses
+import argparse
 import subprocess
 import sys
 import time
@@ -24,12 +26,15 @@ ITERS = 10
 
 
 def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", default="ransac", choices=["ransac", "orb"])
+    args = p.parse_args()
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from points_matching_tpu_torch.core.config import (
-        MatcherConfig, RansacConfig, surf_parity_config)
+    from points_matching_tpu_torch.core.config import named_config
     from points_matching_tpu_torch.core.device import pin_fp32, resolve_device
     from points_matching_tpu_torch.data.render import render_sequence
     from points_matching_tpu_torch.geometry.fundamental import (
@@ -45,9 +50,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])
-    cfg = dataclasses.replace(surf_parity_config(),
-                              matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.85),
-                              ransac=RansacConfig(), use_ransac=True)
+    cfg = named_config(args.config)
+    print(f"config {args.config}: {cfg.detector.max_keypoints} keypoints, "
+          f"{cfg.ransac.num_hypotheses} hypotheses")
     imgs, *_ = render_sequence(num_frames=2, num_landmarks=500, image_size=(993, 660),
                                seed=0)
     im1, im2 = (torch.from_numpy(np.ascontiguousarray(i)).to(dev) for i in imgs)

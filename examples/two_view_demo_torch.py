@@ -6,7 +6,7 @@ as PNGs (PNG output needs PIL).
 
 Usage:
   python examples/two_view_demo_torch.py IMG1 IMG2 [--out OUT_DIR]
-      [--config surf_parity|ransac] [--device cuda|cpu] [--seed N]
+      [--config surf_parity|orb|ransac] [--device cuda|cpu] [--seed N]
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -23,28 +23,28 @@ def main() -> int:
     p.add_argument(
         "--config",
         default="ransac",
-        choices=["surf_parity", "ransac"],
+        choices=["surf_parity", "orb", "ransac"],
         help="surf_parity = reference semantics (midpoint filter, no RANSAC); "
-        "ransac = SURF-class + ratio test + batched RANSAC",
+        "ransac = SURF-class + ratio test + batched RANSAC; orb = BASELINE config 0 "
+        "(FAST + rotated BRIEF + Hamming ratio match + RANSAC, 1024 keypoints)",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda raises when no CUDA device exists (no CPU fallback)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--max-keypoints", type=int, default=512)
+    p.add_argument("--max-keypoints", type=int, default=None,
+                   help="keypoint capacity (default: the configuration's own, "
+                   "512 for the SURF configurations, 1024 for orb)")
     args = p.parse_args()
 
     import numpy as np
 
-    from points_matching_tpu_torch.core.config import MatcherConfig, surf_parity_config
+    from points_matching_tpu_torch.core.config import named_config
     from points_matching_tpu_torch.pipelines.two_view import run_two_view_demo
 
-    cfg = surf_parity_config()
-    if args.config == "ransac":
+    cfg = named_config(args.config)
+    if args.max_keypoints is not None:
         cfg = dataclasses.replace(
-            cfg, matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.85),
-            use_ransac=True)
-    cfg = dataclasses.replace(
-        cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=args.max_keypoints))
+            cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=args.max_keypoints))
 
     res = run_two_view_demo(args.img1, args.img2, cfg, out_dir=args.out, seed=args.seed,
                             device=args.device)

@@ -201,3 +201,20 @@ def orb_default_config() -> TwoViewConfig:
         matcher=MatcherConfig(metric="hamming", filter="ratio", ratio=0.8),
         use_ransac=True,
     )
+
+
+def named_config(name: str) -> TwoViewConfig:
+    """The configurations the demo, the profiler and ``chip_smoke.py`` run
+    by name: ``surf_parity`` (the reference demo), ``ransac`` (the demo's
+    default: SURF-class + ratio 0.85 + batched RANSAC) and ``orb``
+    (BASELINE config 0)."""
+    if name == "surf_parity":
+        return surf_parity_config()
+    if name == "ransac":
+        return dataclasses.replace(
+            surf_parity_config(),
+            matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.85),
+            use_ransac=True)
+    if name == "orb":
+        return orb_default_config()
+    raise ValueError(f"unknown configuration: {name!r}")

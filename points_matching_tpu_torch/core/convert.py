@@ -55,13 +55,18 @@ def keypoints_from_numpy(kps, device="cpu") -> Keypoints:
 
 
 def descriptors_from_numpy(desc, device="cpu") -> Descriptors:
-    """Float descriptors from any object with ``data/mask`` arrays."""
-    if getattr(desc, "binary", False):
-        raise NotImplementedError("binary descriptors arrive with the ORB slice")
-    return Descriptors(
-        data=_tensor(desc.data, torch.float32, device),
-        mask=_tensor(desc.mask, torch.bool, device),
-    )
+    """Descriptors from any object with ``data/mask`` arrays (and
+    ``binary``, default False).  Binary descriptors arrive as uint32 words
+    and are held as int32 with identical bits: every bit is kept."""
+    mask = _tensor(desc.mask, torch.bool, device)
+    if not getattr(desc, "binary", False):
+        return Descriptors(data=_tensor(desc.data, torch.float32, device), mask=mask)
+    words = np.array(desc.data)
+    if words.dtype == np.uint32:
+        words = words.view(np.int32)
+    elif words.dtype != np.int32:
+        raise TypeError(f"binary descriptors must be uint32 or int32 words, got {words.dtype}")
+    return Descriptors(data=torch.from_numpy(words).to(device), mask=mask, binary=True)
 
 
 def matches_from_numpy(m, device="cpu") -> Matches:

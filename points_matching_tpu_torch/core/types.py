@@ -49,7 +49,9 @@ class Descriptors:
 
     Attributes:
       data: [N, D] float32 (float descriptors, unit rows) or [N, W] packed
-            bits (binary descriptors).
+            bits (binary descriptors): ``torch.int32`` words holding the
+            reference's uint32 bits unchanged (torch's uint32 lacks ``>>``
+            and ``+``; ``.numpy().view(np.uint32)`` converts back).
       mask: [N] bool.
       binary: True if ``data`` holds packed bits.
     """

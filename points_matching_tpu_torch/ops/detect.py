@@ -1,12 +1,16 @@
-"""Keypoint detection, Hessian (SURF-class) kind — port of
-``points_matching_tpu/ops/detect.py``.
+"""Keypoint detection — port of ``points_matching_tpu/ops/detect.py``.
 
-Scale space as separable Gaussian-derivative convolutions at full
-resolution (``F.conv2d``, SAME zero padding, fp32 with TF32 off), spatial
-and scale non-max suppression by window maxima, a fixed-capacity exact
-top-k over the response volume, a per-winner sub-pixel parabola step and a
-smooth dominant orientation.  Static capacity + validity mask, as in the
-reference.
+Three kinds: ``hessian`` (SURF-class determinant of Hessian over a scale
+ladder), ``harris`` (Harris corners over the same ladder) and ``fast``
+(FAST-9 on one scale, the ORB configuration's detector).  Responses are
+separable Gaussian(-derivative) convolutions at full resolution
+(``F.conv2d``, SAME zero padding, fp32 with TF32 off) or, for FAST, ring
+shifts that wrap at the image edges like the reference's ``jnp.roll``;
+then spatial and scale non-max suppression by window maxima, a
+fixed-capacity exact top-k over the response volume, a per-winner
+sub-pixel parabola step and a smooth dominant orientation (none for FAST,
+whose keypoints stay upright as in the reference).  Static capacity +
+validity mask, as in the reference.
 """
 from __future__ import annotations
 
@@ -51,6 +55,22 @@ def _conv_sep(img: Tensor, kys, kxs) -> Tensor:
     return F.conv2d(cols, kx, padding=(0, R), groups=len(kxs))[0]
 
 
+def _blur_maps(maps: Tensor, sigma: float) -> Tensor:
+    """Gaussian blur of each of [C, H, W] maps (SAME zero padding)."""
+    r = max(1, int(math.ceil(3.0 * sigma)))
+    g = torch.as_tensor(_gaussian_kernel1d(sigma, r, 0), device=maps.device)
+    C = maps.shape[0]
+    cols = F.conv2d(maps[None], g.view(1, 1, -1, 1).expand(C, 1, -1, 1),
+                    padding=(r, 0), groups=C)
+    return F.conv2d(cols, g.view(1, 1, 1, -1).expand(C, 1, 1, -1),
+                    padding=(0, r), groups=C)[0]
+
+
+def gaussian_blur(img: Tensor, sigma: float) -> Tensor:
+    """Gaussian blur of an [H, W] image, radius ⌈3σ⌉, SAME zero padding."""
+    return _blur_maps(img[None], sigma)[0]
+
+
 def hessian_response(img: Tensor, sigma: float) -> Tensor:
     """Scale-normalized determinant of Hessian at scale ``sigma``:
     σ⁴·(Lxx·Lyy − (0.9·Lxy)²)."""
@@ -61,6 +81,50 @@ def hessian_response(img: Tensor, sigma: float) -> Tensor:
     Lxx, Lyy, Lxy = _conv_sep(img, [g0, g2, g1], [g2, g0, g1])
     s4 = sigma**4
     return s4 * (Lxx * Lyy - (0.9 * Lxy) ** 2)
+
+
+def harris_response(img: Tensor, sigma: float, k: float = 0.04) -> Tensor:
+    """Harris corner response at integration scale ``sigma`` (derivative
+    scale 0.7σ): σ²·(det S − k·tr(S)²) of the blurred structure tensor S."""
+    gd = 0.7 * sigma
+    r = max(1, int(math.ceil(3.0 * gd)))
+    g0 = _gaussian_kernel1d(gd, r, 0)
+    g1 = _gaussian_kernel1d(gd, r, 1)
+    Ix, Iy = _conv_sep(img, [g0, g1], [g1, g0])
+    Sxx, Syy, Sxy = _blur_maps(torch.stack([Ix * Ix, Iy * Iy, Ix * Iy]), sigma)
+    det = Sxx * Syy - Sxy * Sxy
+    tr = Sxx + Syy
+    return sigma**2 * (det - k * tr * tr)
+
+
+_FAST_OFFSETS = (
+    (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
+    (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
+)
+
+
+def fast_response(img: Tensor, threshold: float, arc: int = 9) -> Tensor:
+    """FAST-N corner score: a pixel is a corner when ``arc`` contiguous
+    pixels of its 16-pixel ring are all brighter (or all darker) than it by
+    more than ``threshold``; the score is Σ|diff| over the ring pixels
+    beyond the threshold, 0 elsewhere.  The ring is the image shifted by
+    the 16 offsets with ``torch.roll``, which wraps at the edges exactly as
+    the reference's ``jnp.roll`` does."""
+    ring = torch.stack([torch.roll(img, shifts=(-dy, -dx), dims=(0, 1))
+                        for dy, dx in _FAST_OFFSETS])                  # [16, H, W]
+    diff = ring - img[None]
+    brighter = diff > threshold
+    darker = diff < -threshold
+
+    def has_arc(bits: Tensor) -> Tensor:
+        acc = bits
+        for s in range(1, arc):
+            acc = acc & torch.roll(bits, -s, dims=0)
+        return acc.any(0)
+
+    is_corner = has_arc(brighter) | has_arc(darker)
+    score = torch.where(brighter | darker, diff.abs(), 0.0).sum(0)
+    return torch.where(is_corner, score, 0.0)
 
 
 def detector_sigmas(config: DetectorConfig) -> Tuple[float, ...]:
@@ -124,16 +188,23 @@ def detect_keypoints(image: Tensor, config: DetectorConfig = DetectorConfig()) -
 
     Returns a fixed-capacity ``Keypoints`` on the image's device.
     """
-    if config.kind != "hessian":
-        raise NotImplementedError(
-            f"detector kind {config.kind!r} is not ported yet (ORB slice)")
-    pin_fp32()   # the response is a convolution: keep cuDNN off TF32
+    pin_fp32()   # the responses are convolutions: keep cuDNN off TF32
     img = image.to(torch.float32)
     H, W = img.shape
     sigmas = detector_sigmas(config)
 
-    resp = torch.stack([hessian_response(img, s) for s in sigmas])   # [S, H, W]
-    thresh = config.threshold * 1e-4  # SURF box-filter units → DoH units
+    if config.kind == "hessian":
+        resp = torch.stack([hessian_response(img, s) for s in sigmas])   # [S, H, W]
+        thresh = config.threshold * 1e-4  # SURF box-filter units → DoH units
+    elif config.kind == "harris":
+        resp = torch.stack([harris_response(img, s) for s in sigmas])
+        thresh = config.threshold
+    elif config.kind == "fast":
+        resp = fast_response(img, config.threshold)[None]
+        sigmas = (1.0,)
+        thresh = 1e-6
+    else:
+        raise ValueError(f"unknown detector kind: {config.kind!r}")
 
     is_peak = _spatial_nms(resp, config.nms_radius) & _scale_nms(resp)
     yy = torch.arange(H, device=img.device)[None, :, None]
@@ -190,7 +261,7 @@ def detect_keypoints(image: Tensor, config: DetectorConfig = DetectorConfig()) -
     mask = torch.isfinite(top_scores)
     score = torch.where(mask, top_scores, 0.0)
 
-    if config.compute_orientation:
+    if config.compute_orientation and config.kind != "fast":
         angle = _orientation(img, xy, scale)
     else:
         angle = torch.zeros((k,), dtype=torch.float32, device=img.device)

@@ -6,6 +6,7 @@
 | K1b | ``matching_kernel.fused_l2_top2_points`` | ``ops/pallas/matching_kernel.py:fused_l2_top2_points`` |
 | K2  | ``ransac_kernel.ransac_score_hypotheses`` | ``ops/pallas/ransac_kernel.py:ransac_score_hypotheses`` |
 | K3  | ``eightpoint_kernel.minimal_eight_point`` | ``ops/pallas/eightpoint_kernel.py:minimal_eight_point`` |
+| K4  | ``hamming_kernel.fused_hamming_top2`` | ``ops/pallas/hamming.py:fused_hamming_top2`` |
 
 Each wrapper launches its kernel for CUDA tensors (or raises), runs the plain
 version for CPU tensors, and counts its kernel launches in its ``launches``
@@ -18,6 +19,7 @@ from typing import Dict
 
 def _wrappers():
     from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import minimal_eight_point
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
         fused_l2_top2,
         fused_l2_top2_points,
@@ -29,6 +31,7 @@ def _wrappers():
         "fused_l2_top2_points": fused_l2_top2_points,
         "ransac_score_hypotheses": ransac_score_hypotheses,
         "minimal_eight_point": minimal_eight_point,
+        "fused_hamming_top2": fused_hamming_top2,
     }
 
 

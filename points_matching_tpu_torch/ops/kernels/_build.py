@@ -46,6 +46,8 @@ _SIGNATURES: Dict[str, list] = {
     "pmt_ransac_score": [_P] * 5 + [_I] * 3 + [_F, _P],
     # sp1, sp2, F, count, stream
     "pmt_eight_point": [_P] * 3 + [_I, _P],
+    # q, t, t_mask, dist, idx, B, N1, N2, W, stream
+    "pmt_hamming_top2": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 last_build: Dict[str, object] = {}

@@ -1,16 +1,18 @@
-"""Descriptor matching (L2) — port of ``points_matching_tpu/ops/matching.py``.
+"""Descriptor matching — port of ``points_matching_tpu/ops/matching.py``.
 
-Exact brute-force 1-NN / 2-NN over squared-L2 distances, then the
-configured filter: Lowe ratio, the reference demo's midpoint rule
+Exact brute-force 1-NN / 2-NN over squared-L2 distances (float
+descriptors) or popcount-Hamming counts (packed binary descriptors), then
+the configured filter: Lowe ratio, the reference demo's midpoint rule
 ``d < min + (max − min)/2`` (with its min=1 / max=0 start), an absolute
 threshold, or none; optional mutual cross-check; optional compaction of the
 survivors to a dense prefix.
 
 Backends (``MatcherConfig.backend``): ``'auto'``/``'pallas'`` go through the
-fused distance + top-2 kernel (K1, ``ops/kernels/matching_kernel.py`` — the
-CUDA kernel on CUDA tensors, its plain version on CPU tensors); ``'xla'``
-materializes the [N1, N2] distance matrix.  ``metric='hamming'`` waits for
-the ORB slice's kernel (K4).
+fused distance + top-2 kernel (K1 for 'l2', ``ops/kernels/matching_kernel.py``;
+K4 for 'hamming', ``ops/kernels/hamming_kernel.py`` — the CUDA kernel on
+CUDA tensors, its plain version on CPU tensors); ``'xla'`` materializes the
+[N1, N2] distance matrix.  Hamming distances are float32 counts and the
+filters compare them raw (no sqrt).
 """
 from __future__ import annotations
 
@@ -20,6 +22,10 @@ import torch
 
 from points_matching_tpu_torch.core.config import MatcherConfig
 from points_matching_tpu_torch.core.types import Descriptors, Matches
+from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
+    fused_hamming_top2,
+    popcount32,
+)
 from points_matching_tpu_torch.ops.kernels.matching_kernel import (
     fused_l2_top2,
     fused_l2_top2_points,
@@ -29,10 +35,11 @@ Tensor = torch.Tensor
 _BIG = 1e30
 
 
-def _no_hamming(metric: str) -> None:
-    if metric == "hamming":
-        raise NotImplementedError(
-            "metric='hamming' is not ported yet (kernel K4, ORB slice)")
+def hamming_distance_matrix(a_bits: Tensor, b_bits: Tensor) -> Tensor:
+    """[N1, W] × [N2, W] packed words → [N1, N2] int32 Hamming distances
+    (XOR + popcount over the word axis)."""
+    x = a_bits[..., :, None, :] ^ b_bits[..., None, :, :]
+    return popcount32(x).sum(-1).to(torch.int32)
 
 
 def l2_distance_matrix(a: Tensor, b: Tensor, compute_dtype: str = "f32") -> Tensor:
@@ -51,8 +58,9 @@ def l2_distance_matrix(a: Tensor, b: Tensor, compute_dtype: str = "f32") -> Tens
 def distance_matrix(d1: Descriptors, d2: Descriptors, metric: str = "l2",
                     compute_dtype: str = "f32") -> Tensor:
     """Masked distance matrix [N1, N2]; invalid rows/cols get 1e30."""
-    _no_hamming(metric)
-    if metric == "l2":
+    if metric == "hamming":
+        d = hamming_distance_matrix(d1.data, d2.data).to(torch.float32)
+    elif metric == "l2":
         d = l2_distance_matrix(d1.data, d2.data, compute_dtype)
     elif metric == "dot":
         d = -(d1.data @ d2.data.transpose(-1, -2))
@@ -86,16 +94,20 @@ def knn_match(d1: Descriptors, d2: Descriptors, k: int = 2, metric: str = "l2",
 
 
 def _use_fused(d1: Descriptors, config: MatcherConfig) -> bool:
-    """The fused K1 path serves the plain-L2 case of the 'auto'/'pallas'
-    backends (no size gate: that was a TPU crossover)."""
+    """The fused kernels (K1 for 'l2', K4 for 'hamming') serve the
+    'auto'/'pallas' backends (no size gate: that was a TPU crossover)."""
     if config.backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend: {config.backend!r}")
-    return config.metric == "l2" and d1.data.dim() == 2 and config.backend != "xla"
+    return (config.metric in ("l2", "hamming") and d1.data.dim() == 2
+            and config.backend != "xla")
 
 
-def _fused_top2(dq: Descriptors, dt: Descriptors, compute_dtype: str):
-    dist, idx = fused_l2_top2(dq.data[None], dt.data[None], dt.mask[None],
-                              compute_dtype=compute_dtype)
+def _fused_top2(dq: Descriptors, dt: Descriptors, config: MatcherConfig):
+    if config.metric == "hamming":
+        dist, idx = fused_hamming_top2(dq.data[None], dt.data[None], dt.mask[None])
+    else:
+        dist, idx = fused_l2_top2(dq.data[None], dt.data[None], dt.mask[None],
+                                  compute_dtype=config.compute_dtype)
     # query-side masking (the kernel only masks train rows)
     return torch.where(dq.mask[:, None], dist[0], _BIG), idx[0]
 
@@ -129,11 +141,10 @@ def match_descriptors(d1: Descriptors, d2: Descriptors,
     prefix, otherwise row i is query i's match and the mask says whether it
     survived.
     """
-    _no_hamming(config.metric)
     k = 2 if config.filter == "ratio" else 1
     use_fused = _use_fused(d1, config)
     if use_fused:
-        dist, idx = _fused_top2(d1, d2, config.compute_dtype)
+        dist, idx = _fused_top2(d1, d2, config)
     else:
         dist, idx = knn_match(d1, d2, k=k, metric=config.metric,
                               compute_dtype=config.compute_dtype)
@@ -154,7 +165,7 @@ def match_descriptors(d1: Descriptors, d2: Descriptors,
     if config.cross_check:
         # mutual 1-NN: train j's best query must be this query i
         if use_fused:
-            _, it = _fused_top2(d2, d1, config.compute_dtype)
+            _, it = _fused_top2(d2, d1, config)
         else:
             _, it = knn_match(d2, d1, k=1, metric=config.metric,
                               compute_dtype=config.compute_dtype)

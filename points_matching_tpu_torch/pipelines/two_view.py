@@ -1,7 +1,8 @@
 """Two-view pipeline — the reference demo end to end (port of
 ``points_matching_tpu/pipelines/two_view.py``).
 
-detect → describe → match (kernel K1) → filter → 8-point F (reference
+detect → describe → match (kernel K1 for float descriptors, K4 for the
+ORB configuration's binary ones) → filter → 8-point F (reference
 semantics) or batched RANSAC (kernels K3 + K2) → residual audit → epilines,
 on one device, with the same fixed-capacity outputs as the JAX pipeline.
 """

@@ -5,6 +5,8 @@ without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -130,9 +132,144 @@ def test_wrappers_raise_on_bad_inputs(dev):
         minimal_eight_point(torch.randn(4, 7, 2, device=dev), torch.randn(4, 7, 2, device=dev))
 
 
-def test_two_view_pipeline_gpu_matches_cpu(dev):
-    import dataclasses
+def _words(gen, *shape, dev):
+    w = torch.randint(0, 2**32, shape, generator=gen, device=dev, dtype=torch.int64)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
+
+def _check_hamming(q, t, t_mask, kd, ki):
+    """Distances and column 0 equal the plain version's; column 1 is a valid
+    train row other than column 0 at the runner-up distance, or the plain
+    version's sentinel row where there is none."""
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
+        hamming_top2_plain, popcount32)
+
+    pd, pi = hamming_top2_plain(q, t, t_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd)
+    assert torch.equal(ki[..., 0], pi[..., 0])
+    i2 = ki[..., 1].long()
+    t_at = torch.gather(t, 1, i2[..., None].expand(-1, -1, t.shape[-1]))
+    d_at = popcount32(q ^ t_at).sum(-1).to(torch.float32)
+    has2 = pd[..., 1] < 1e29
+    ok = (d_at == kd[..., 1]) & torch.gather(t_mask, 1, i2) & (i2 != ki[..., 0].long())
+    assert bool(torch.where(has2, ok, ki[..., 1] == pi[..., 1]).all())
+
+
+@pytest.mark.parametrize("b,n1,n2", [(3, 200, 1500), (2, 1030, 77), (1, 5, 1)])
+def test_hamming_top2_kernel_matches_plain(dev, b, n1, n2):
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t = _words(gen, b, n2, 8, dev=dev)
+    q = _words(gen, b, n1, 8, dev=dev)
+    k = min(n1, n2) // 2
+    q[:, :k] = t[:, :k]                                 # exact duplicates
+    q[:, k:2 * k] = t[:, :k] ^ 5                        # two flipped bits
+    t_mask = torch.rand(b, n2, generator=gen, device=dev) > 0.05
+    t_mask[:, 0] = True
+    before = fused_hamming_top2.launches
+    kd, ki = fused_hamming_top2(q, t, t_mask)
+    assert fused_hamming_top2.launches == before + 1
+    _check_hamming(q, t, t_mask, kd, ki)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1])
+def test_hamming_top2_kernel_fewer_than_two_valid_rows(dev, n_valid):
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, t = _words(gen, 2, 300, 8, dev=dev), _words(gen, 2, 2100, 8, dev=dev)
+    t_mask = torch.zeros(2, 2100, dtype=torch.bool, device=dev)
+    t_mask[:, 1500:1500 + n_valid] = True               # in the second tile
+    kd, ki = fused_hamming_top2(q, t, t_mask)
+    _check_hamming(q, t, t_mask, kd, ki)
+    assert bool((kd[..., 1] == 1e30).all())
+    assert bool((ki[..., 0] == (1500 if n_valid else 0)).all())
+
+
+def test_hamming_wrapper_raises_on_bad_inputs(dev):
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _words(gen, 1, 10, 8, dev=dev)
+    m = torch.ones(1, 10, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):                     # W = 4: not the kernel's width
+        fused_hamming_top2(q[..., :4].contiguous(), q[..., :4].contiguous(), m)
+    with pytest.raises(ValueError):                     # strided
+        fused_hamming_top2(_words(gen, 1, 10, 16, dev=dev)[..., ::2], q, m)
+    with pytest.raises(TypeError):
+        fused_hamming_top2(q.to(torch.int64), q.to(torch.int64), m)
+    with pytest.raises(ValueError):
+        fused_hamming_top2(q, q.cpu(), m)
+
+
+def test_match_descriptors_hamming_launches_k4(dev):
+    from points_matching_tpu_torch.core.config import MatcherConfig
+    from points_matching_tpu_torch.core.types import Descriptors
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.ops.matching import match_descriptors
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = _words(gen, 300, 8, dev=dev)
+    d1 = Descriptors(data=q, mask=torch.ones(300, dtype=torch.bool, device=dev), binary=True)
+    d2 = Descriptors(data=q.flip(0) ^ 1, mask=d1.mask, binary=True)
+    for cross_check, expected in ((False, 1), (True, 2)):
+        cfg = MatcherConfig(metric="hamming", filter="ratio", cross_check=cross_check)
+        kernels.reset_launch_counts()
+        m = match_descriptors(d1, d2, cfg)
+        assert kernels.launch_counts()["fused_hamming_top2"] == expected
+        assert kernels.launch_counts()["fused_l2_top2"] == 0
+        cpu = match_descriptors(Descriptors(d1.data.cpu(), d1.mask.cpu(), True),
+                                Descriptors(d2.data.cpu(), d2.mask.cpu(), True), cfg)
+        assert torch.equal(m.train_idx.cpu(), cpu.train_idx)
+        assert torch.equal(m.mask.cpu(), cpu.mask)
+        assert int(m.mask.sum()) == 300                 # every row has its 1-bit partner
+
+
+def test_orb_pipeline_on_cuda_runs_kernels_not_plain(dev, monkeypatch):
+    from points_matching_tpu_torch.core.config import RansacConfig, orb_default_config
+    from points_matching_tpu_torch.data.render import render_sequence
+    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.ops.kernels import (
+        eightpoint_kernel, hamming_kernel, ransac_kernel)
+    from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
+
+    cfg = dataclasses.replace(orb_default_config(), ransac=RansacConfig(num_hypotheses=256))
+    imgs, *_ = render_sequence(num_frames=2, num_landmarks=300, image_size=(320, 256))
+    g1, g2 = (torch.from_numpy(np.ascontiguousarray(i)).to(dev) for i in imgs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    with monkeypatch.context() as mp:
+        for mod, name in ((hamming_kernel, "hamming_top2_plain"),
+                          (eightpoint_kernel, "minimal_eight_point_plain"),
+                          (ransac_kernel, "ransac_score_plain")):
+            mp.setattr(mod, name, refuse)
+        kernels.reset_launch_counts()
+        res = two_view_pipeline(g1, g2, torch.Generator(device=dev).manual_seed(0), cfg)
+        counts = kernels.launch_counts()
+    assert counts["fused_hamming_top2"] == counts["minimal_eight_point"] == \
+        counts["ransac_score_hypotheses"] == 1
+    assert counts["fused_l2_top2"] == 0
+    assert int(res.kps1.mask.sum()) == 1024
+    assert not bool(res.kps1.angle.any())               # FAST keypoints stay upright
+    samples = sample_minimal_points(torch.Generator(device=dev).manual_seed(1),
+                                    res.matches.mask, 256, 8, (res.p1, res.p2))
+    gpu = two_view_pipeline(g1, g2, None, cfg, samples=samples)
+    cpu = two_view_pipeline(g1.cpu(), g2.cpu(), None, cfg,
+                            samples=tuple(s.cpu() for s in samples))
+    assert int(gpu.kps1.mask.sum()) == int(cpu.kps1.mask.sum())
+    n_cpu = int(cpu.matches.mask.sum())
+    assert n_cpu >= 32 and abs(int(gpu.matches.mask.sum()) - n_cpu) <= max(2, n_cpu // 50)
+    assert abs(int(gpu.estimate.num_inliers) - int(cpu.estimate.num_inliers)) <= \
+        max(2, int(cpu.estimate.num_inliers) // 20)
+    assert abs(float((gpu.estimate.F.cpu() * cpu.estimate.F).sum())) >= 0.99
+
+
+def test_two_view_pipeline_gpu_matches_cpu(dev):
     from points_matching_tpu_torch.core.config import (
         DetectorConfig, MatcherConfig, RansacConfig, TwoViewConfig)
     from points_matching_tpu_torch.data.render import render_sequence

@@ -17,9 +17,12 @@ from points_matching_tpu.ops import descriptors as jdesc  # noqa: E402
 from points_matching_tpu.ops import detect as jdet  # noqa: E402
 from points_matching_tpu.ops.sampling import bilinear_sample as j_sample  # noqa: E402
 from points_matching_tpu_torch.core.convert import config_from_dict, keypoints_from_numpy  # noqa: E402
-from points_matching_tpu_torch.core.config import DetectorConfig  # noqa: E402
+from points_matching_tpu_torch.core.config import DescriptorConfig, DetectorConfig  # noqa: E402
 from points_matching_tpu_torch.data.render import render_sequence  # noqa: E402
-from points_matching_tpu_torch.ops.descriptors import surf_describe  # noqa: E402
+from points_matching_tpu_torch.ops.descriptors import (  # noqa: E402
+    extract_descriptors,
+    surf_describe,
+)
 from points_matching_tpu_torch.ops.detect import detect_keypoints, hessian_response  # noqa: E402
 from points_matching_tpu_torch.ops.sampling import bilinear_sample  # noqa: E402
 
@@ -107,6 +110,11 @@ def test_surf_describe_on_same_keypoints(image):
     np.testing.assert_allclose(td.data.numpy(), np.asarray(jd.data), atol=1e-4)
 
 
-def test_other_detector_kinds_not_ported_yet(image):
-    with pytest.raises(NotImplementedError):
-        detect_keypoints(torch.from_numpy(image), DetectorConfig(kind="fast"))
+def test_unknown_detector_and_descriptor_kinds_raise(image):
+    # FAST, Harris and ORB are tested in tests/test_torch_orb.py
+    img = torch.from_numpy(image)
+    with pytest.raises(ValueError):
+        detect_keypoints(img, DetectorConfig(kind="sift"))
+    kps = detect_keypoints(img, DetectorConfig(max_keypoints=16))
+    with pytest.raises(ValueError):
+        extract_descriptors(img, kps, DescriptorConfig(kind="sift"))

@@ -186,9 +186,11 @@ def test_match_descriptors_points_invariant(filt):
     np.testing.assert_array_equal(got.numpy(), pts[m.train_idx.numpy()])
 
 
-def test_hamming_metric_not_ported_yet():
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_unknown_metric_raises(backend):
+    # the Hamming metric is tested in tests/test_torch_orb.py
     q, qm, t, tmask = _desc_pair(seed=10)
     d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm))
     d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask))
-    with pytest.raises(NotImplementedError):
-        tm.match_descriptors(d1, d2, MatcherConfig(metric="hamming"))
+    with pytest.raises(ValueError):
+        tm.match_descriptors(d1, d2, MatcherConfig(metric="cosine", backend=backend))

@@ -10,11 +10,15 @@ result line:
 2. build   — compile every CUDA kernel of the paths from ``csrc/`` (nvcc,
              sm_90a) and report the seconds.
 3. kernels — each kernel against its plain PyTorch version on the card at
-             the main paths' shapes (64 pairs × 512 × 512 × 64 for K1/K1b,
+             two shapes: batched (64 pairs × 512 × 512 × 64 for K1/K1b,
              64 × 512 hypotheses × 512 points for K2, 64 × 512 samples for
-             K3, 64 pairs × 1024 × 1024 × 8 words for K4): errors,
-             agreement, CUDA-event times after a warm-up, and each kernel's
-             bound (the least time the card could take for the same work).
+             K3, 64 pairs × 1024 × 1024 × 8 words for K4) and one pair (the
+             shape the slices launch): errors, agreement, kernel times
+             (CUDA-graph replays, so that the host's enqueue time does not
+             hide a short kernel), plain times (CUDA events), and each
+             kernel's bound (the least time the card could take for the
+             same work).  K1, K1b and K4 on one pair must equal the same
+             pair's rows of the batched launch bit for bit.
 4. slices  — a rendered 993×660 pair through ``two_view_pipeline`` twice:
              the SURF slice with the demo's ``--config ransac`` settings
              (512 keypoints, 512 hypotheses, plus ``match_descriptors_points``)
@@ -53,7 +57,6 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12                 # an FMA is two flops
 FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 POPC_PER_S = FP32_INSTR_PER_S * 16 / 128
-BIG = 1e30
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -76,6 +79,38 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 50, replays: int = 5) -> float:
+    """Mean device milliseconds per call: `iters` calls captured in one CUDA
+    graph, replayed `replays` times between CUDA events.  The host's time to
+    enqueue a call (the wrapper's checks and allocations, the ctypes call,
+    some 20 µs) is not in it, so a kernel shorter than that is not hidden
+    behind it; back-to-back kernels in a graph still cost a few µs each."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
@@ -271,63 +306,102 @@ def main() -> int:
     from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
         minimal_eight_point, minimal_eight_point_plain)
     from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
-        fused_hamming_top2, hamming_top2_plain, popcount32)
+        fused_hamming_top2, hamming_top2_plain)
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
         fused_l2_top2, fused_l2_top2_points, l2_top2_plain, l2_top2_points_plain)
     from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
         ransac_score_hypotheses, ransac_score_plain)
 
     # -- 3. kernels against their plain versions -----------------------------
+    # Each kernel runs at two shapes: the batched one (64 pairs, the bench
+    # head's) and one pair, which is what the slices launch.  Kernel times
+    # are CUDA-graph replays (`_graph_ms`), plain times CUDA events around
+    # back-to-back calls (`_cuda_ms`).  No single PyTorch call computes any
+    # of K1-K4 (a fused top-2 over L2 or Hamming distances, a batch of
+    # Sampson-gated counts, a batch of rank-2 minimal 8-point solves), so
+    # every library_ms is null.
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, D, H = 64, 512, 64, 512
     report = {}
-    # no single PyTorch call computes any of K1-K4 (a fused top-2 over
-    # L2 or Hamming distances, a batch of Sampson-gated counts, a batch of
-    # rank-2 minimal 8-point solves), so every library_ms is null
+
+    def measure(tag, kernel, plain, args, bound, plain_iters=20):
+        ms = _graph_ms(lambda: kernel(*args))
+        pms = _cuda_ms(lambda: plain(*args), iters=plain_iters,
+                       warmup=1 if plain_iters < 20 else 3)
+        print(f"kernel {tag}: {ms:.4f} ms vs plain {pms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        return ms, pms
+
+    def entry(err, batched, one):
+        """A kernel's report: errors over both shapes, the batched times and
+        bound, and the one-pair ones beside them."""
+        (ms, pms, bound), (ms1, pms1, bound1) = batched, one
+        return dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None,
+                    ms_one_pair=ms1, bound_ms_one_pair=bound1["bound_ms"],
+                    plain_ms_one_pair=pms1)
 
     q = torch.randn(B, N, D, generator=gen, device=dev)
     q = q / q.norm(dim=-1, keepdim=True)
     t = torch.randn(B, N, D, generator=gen, device=dev)
     t = t / t.norm(dim=-1, keepdim=True)
     t_mask = torch.rand(B, N, generator=gen, device=dev) > 0.05
-    # K1 moves q and t (f32), t_mask, dist (f32) and idx (i32); one FMA per
-    # (query, train, dim) cell
-    k1_bytes = 4 * B * 2 * N * D + B * N + 8 * B * N * 2
-    k1_bound = _bound(k1_bytes, 2 * B * N * N * D, FP32_FLOPS_PER_S)
+    pts = torch.rand(B, N, 2, generator=gen, device=dev) * torch.tensor(
+        [993.0, 660.0], device=dev)
+
+    def k1_bound(nb, points=False):
+        # q and t (f32), t_mask, dist (f32) and idx (i32), + t_points and
+        # pts for K1b; one FMA per (query, train, dim) cell
+        nbytes = 4 * nb * 2 * N * D + nb * N + 8 * nb * N * 2 + points * 4 * nb * N * 2 * 2
+        return _bound(nbytes, 2 * nb * N * N * D, FP32_FLOPS_PER_S)
+
     # both dtypes: the kernel and the plain version round the same operands
     # and differ only in fp32 summation order (measured on the card: < 1e-6)
     for dtype, dist_tol in (("f32", 1e-5), ("bf16", 1e-5)):
-        kd, ki = fused_l2_top2(q, t, t_mask, compute_dtype=dtype)
-        pd, pi = l2_top2_plain(q, t, t_mask, compute_dtype=dtype)
+        outs, times, errs = {}, {}, []
+        for nb in (B, 1):
+            args = (q[:nb], t[:nb], t_mask[:nb])
+            kd, ki = fused_l2_top2(*args, compute_dtype=dtype)
+            pd, pi = l2_top2_plain(*args, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            err = float((kd - pd).abs().max())
+            tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+            idx_bad = int(((ki[..., 0] != pi[..., 0]) & ~tie).sum())
+            print(f"kernel K1 {dtype} x{nb}: max|dist err| {err:.3g} (tol {dist_tol:g}), "
+                  f"1-NN index mismatches off near-ties {idx_bad}")
+            _check(err <= dist_tol and idx_bad == 0, f"K1 {dtype} x{nb} disagrees with plain")
+            bound = k1_bound(nb)
+            times[nb] = (*measure(f"K1 {dtype} x{nb}", lambda *a: fused_l2_top2(
+                *a, compute_dtype=dtype), lambda *a: l2_top2_plain(*a, compute_dtype=dtype),
+                args, bound), bound)
+            outs[nb] = (kd, ki)
+            errs.append(err)
+        # one pair alone gives that pair's rows of the batched launch, bit for bit
+        same = all(torch.equal(a, b[:1]) for a, b in zip(outs[1], outs[B]))
+        print(f"kernel K1 {dtype}: one pair == its rows of the batch bit for bit: {same}")
+        _check(same, f"K1 {dtype}: one-pair launch differs from the batched one")
+        report[f"K1_{dtype}"] = entry(max(errs), times[B], times[1])
+
+    outs, times, errs = {}, {}, []
+    for nb in (B, 1):
+        args = (q[:nb], t[:nb], t_mask[:nb], pts[:nb])
+        kd, ki, kp = fused_l2_top2_points(*args)
+        pd, pi, pp = l2_top2_points_plain(*args)
         torch.cuda.synchronize()
         err = float((kd - pd).abs().max())
-        tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
-        idx_bad = int(((ki[..., 0] != pi[..., 0]) & ~tie).sum())
-        ms = _cuda_ms(lambda: fused_l2_top2(q, t, t_mask, compute_dtype=dtype))
-        pms = _cuda_ms(lambda: l2_top2_plain(q, t, t_mask, compute_dtype=dtype))
-        print(f"kernel K1 {dtype}: max|dist err| {err:.3g} (tol {dist_tol:g}), "
-              f"1-NN index mismatches off near-ties {idx_bad}, "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms")
-        _check(err <= dist_tol and idx_bad == 0, f"K1 {dtype} disagrees with plain")
-        report[f"K1_{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **k1_bound,
-                                     library_ms=None)
-
-    pts = torch.rand(B, N, 2, generator=gen, device=dev) * torch.tensor(
-        [993.0, 660.0], device=dev)
-    kd, ki, kp = fused_l2_top2_points(q, t, t_mask, pts)
-    pd, pi, pp = l2_top2_points_plain(q, t, t_mask, pts)
-    torch.cuda.synchronize()
-    err = float((kd - pd).abs().max())
-    gathered = torch.gather(pts, 1, ki[..., :1].long().expand(-1, -1, 2))
-    pts_exact = bool(torch.equal(kp, gathered))
-    ms = _cuda_ms(lambda: fused_l2_top2_points(q, t, t_mask, pts))
-    pms = _cuda_ms(lambda: l2_top2_points_plain(q, t, t_mask, pts))
-    bound = _bound(k1_bytes + 4 * B * N * 2 * 2, 2 * B * N * N * D, FP32_FLOPS_PER_S)
-    print(f"kernel K1b: max|dist err| {err:.3g} (tol 1e-05), "
-          f"pts == t_points[idx] exactly: {pts_exact}, {ms:.4f} ms vs plain {pms:.4f} ms, "
-          f"bound {bound['bound_ms']:.4f} ms")
-    _check(err <= 1e-5 and pts_exact, "K1b disagrees with plain")
-    report["K1b"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None)
+        gathered = torch.gather(pts[:nb], 1, ki[..., :1].long().expand(-1, -1, 2))
+        pts_exact = bool(torch.equal(kp, gathered))
+        print(f"kernel K1b x{nb}: max|dist err| {err:.3g} (tol 1e-05), "
+              f"pts == t_points[idx] exactly: {pts_exact}")
+        _check(err <= 1e-5 and pts_exact, f"K1b x{nb} disagrees with plain")
+        bound = k1_bound(nb, points=True)
+        times[nb] = (*measure(f"K1b x{nb}", fused_l2_top2_points, l2_top2_points_plain,
+                              args, bound), bound)
+        outs[nb] = (kd, ki, kp)
+        errs.append(err)
+    same = all(torch.equal(a, b[:1]) for a, b in zip(outs[1], outs[B]))
+    print(f"kernel K1b: one pair == its rows of the batch bit for bit: {same}")
+    _check(same, "K1b: one-pair launch differs from the batched one")
+    report["K1b"] = entry(max(errs), times[B], times[1])
 
     p1, p2, pmask = _scenes(B, N, gen, dev)
     # 8 distinct correspondences per hypothesis
@@ -336,79 +410,80 @@ def main() -> int:
                        pick[..., None].expand(B, H, 8, 2)).contiguous()
     sp2 = torch.gather(p2[:, None].expand(B, H, N, 2), 2,
                        pick[..., None].expand(B, H, 8, 2)).contiguous()
-    kF = minimal_eight_point(sp1, sp2)
-    pF = minimal_eight_point_plain(sp1, sp2)
-    torch.cuda.synchronize()
-    err = float((kF - pF).abs().max())
-    finite = bool(torch.isfinite(kF).all())
-    ms = _cuda_ms(lambda: minimal_eight_point(sp1, sp2))
-    pms = _cuda_ms(lambda: minimal_eight_point_plain(sp1, sp2), iters=3, warmup=1)
     # one instruction per scalar op (--fmad=false): counted on one sample
     per_sample = _elementwise_ops(minimal_eight_point_plain, sp1[:1, :1].cpu(),
                                   sp2[:1, :1].cpu())
-    bound = _bound(B * H * (2 * 8 * 2 + 9) * 4, B * H * per_sample, FP32_INSTR_PER_S)
-    print(f"kernel K3: max|F err| {err:.3g} (tol 1e-05) over all {kF.shape[0] * kF.shape[1]} "
-          f"samples, finite {finite}, {ms:.4f} ms vs plain {pms:.4f} ms, "
-          f"bound {bound['bound_ms']:.4f} ms ({per_sample} fp32 ops per sample)")
-    # the plain version is the kernel's chain in the kernel's operation order
-    # (--fmad=false, IEEE sqrt and division): the two agree to the last bit
-    # on the card, so every sample is held to 1e-5
-    _check(finite and err <= 1e-5, "K3 disagrees with plain")
-    report["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None)
+    times, errs, kFs = {}, [], {}
+    for nb in (B, 1):
+        args = (sp1[:nb], sp2[:nb])
+        kF = kFs[nb] = minimal_eight_point(*args)
+        pF = minimal_eight_point_plain(*args)
+        torch.cuda.synchronize()
+        err = float((kF - pF).abs().max())
+        finite = bool(torch.isfinite(kF).all())
+        print(f"kernel K3 x{nb}: max|F err| {err:.3g} (tol 1e-05) over all "
+              f"{kF.shape[0] * kF.shape[1]} samples, finite {finite} "
+              f"({per_sample} fp32 ops per sample)")
+        # the plain version is the kernel's chain in the kernel's operation
+        # order (--fmad=false, IEEE sqrt and division): the two agree to the
+        # last bit on the card, so every sample is held to 1e-5
+        _check(finite and err <= 1e-5, f"K3 x{nb} disagrees with plain")
+        bound = _bound(nb * H * (2 * 8 * 2 + 9) * 4, nb * H * per_sample, FP32_INSTR_PER_S)
+        times[nb] = (*measure(f"K3 x{nb}", minimal_eight_point, minimal_eight_point_plain,
+                              args, bound, plain_iters=3), bound)
+        errs.append(err)
+    report["K3"] = entry(max(errs), times[B], times[1])
+    kF = kFs[B]
 
-    kc = ransac_score_hypotheses(kF, p1, p2, pmask, 1.5)
-    pc = ransac_score_plain(kF, p1, p2, pmask, 1.5)
-    torch.cuda.synchronize()
-    cdiff = int((kc - pc).abs().max())
-    same = float((kc == pc).float().mean())
-    ms = _cuda_ms(lambda: ransac_score_hypotheses(kF, p1, p2, pmask, 1.5))
-    pms = _cuda_ms(lambda: ransac_score_plain(kF, p1, p2, pmask, 1.5))
     per_cell = _elementwise_ops(ransac_score_plain, kF[:1, :1].cpu(), p1[:1, :1].cpu(),
                                 p2[:1, :1].cpu(), pmask[:1, :1].cpu(), 1.5)
-    bound = _bound(B * H * (9 + 1) * 4 + B * N * (2 * 2 * 4 + 1), B * H * N * per_cell,
-                   FP32_INSTR_PER_S)
-    print(f"kernel K2: max|count diff| {cdiff} (tol 0), equal share {same:.4f}, "
-          f"max count {int(kc.max())}/{N}, {ms:.4f} ms vs plain {pms:.4f} ms, "
-          f"bound {bound['bound_ms']:.4f} ms ({per_cell} fp32 ops per cell)")
-    # same association order and --fmad=false: the same gates, every count equal
-    _check(cdiff == 0 and int(kc.max()) > N // 2, "K2 disagrees with plain")
-    report["K2"] = dict(max_abs_err=float(cdiff), ms=ms, plain_ms=pms, **bound,
-                        library_ms=None)
+    times, errs = {}, []
+    for nb in (B, 1):
+        args = (kF[:nb], p1[:nb], p2[:nb], pmask[:nb], 1.5)
+        kc = ransac_score_hypotheses(*args)
+        pc = ransac_score_plain(*args)
+        torch.cuda.synchronize()
+        cdiff = int((kc - pc).abs().max())
+        print(f"kernel K2 x{nb}: max|count diff| {cdiff} (tol 0), "
+              f"max count {int(kc.max())}/{N} ({per_cell} fp32 ops per cell)")
+        # same association order and --fmad=false: the same gates, every count equal
+        _check(cdiff == 0 and int(kc.max()) > N // 2, f"K2 x{nb} disagrees with plain")
+        bound = _bound(nb * H * (9 + 1) * 4 + nb * N * (2 * 2 * 4 + 1),
+                       nb * H * N * per_cell, FP32_INSTR_PER_S)
+        times[nb] = (*measure(f"K2 x{nb}", ransac_score_hypotheses, ransac_score_plain,
+                              args, bound), bound)
+        errs.append(float(cdiff))
+    report["K2"] = entry(max(errs), times[B], times[1])
 
     # K4: the ORB slice's shapes (1024 keypoints, 256-bit descriptors)
     HB, HN, HW = 64, 1024, 8
     hq, ht, hmask = _binary_descriptors(HB, HN, HW, gen, dev)
-    kd, ki = fused_hamming_top2(hq, ht, hmask)
-    pd, pi = hamming_top2_plain(hq, ht, hmask)
-    torch.cuda.synchronize()
-    err = float((kd - pd).abs().max())
-    col0 = bool(torch.equal(ki[..., 0], pi[..., 0]))
-    # column 1: a valid train row other than column 0 at the runner-up
-    # distance (where there is one; else the plain version's sentinel row)
-    i2 = ki[..., 1].long()
-    t_at = torch.gather(ht, 1, i2[..., None].expand(-1, -1, HW))
-    d_at = popcount32(hq ^ t_at).sum(-1).to(torch.float32)
-    has2 = pd[..., 1] < BIG
-    col1 = torch.where(has2, (d_at == kd[..., 1]) & torch.gather(hmask, 1, i2)
-                       & (i2 != ki[..., 0].long()), ki[..., 1] == pi[..., 1])
-    col1_ok = bool(col1.all())
-    col1_same = float((ki[..., 1] == pi[..., 1]).float().mean())
-    ties = float((pd[..., 0] == pd[..., 1]).float().mean())
-    ms = _cuda_ms(lambda: fused_hamming_top2(hq, ht, hmask))
-    pms = _cuda_ms(lambda: hamming_top2_plain(hq, ht, hmask), iters=3, warmup=1)
-    bound = _bound(4 * HB * 2 * HN * HW + HB * HN + 8 * HB * HN * 2, HB * HN * HN * HW,
-                   POPC_PER_S)
-    # the ORB slice matches one pair per launch: 8 blocks of 128 threads
-    one_ms = _cuda_ms(lambda: fused_hamming_top2(hq[:1], ht[:1], hmask[:1]))
-    print(f"kernel K4: max|dist err| {err:.3g} (tol 0), column 0 equal {col0}, "
-          f"column 1 attains the runner-up {col1_ok} (equal to plain on "
-          f"{col1_same:.4f}), tied best/runner-up on {ties:.4f} of rows, "
-          f"{ms:.4f} ms vs plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms; "
-          f"one pair {one_ms:.4f} ms (bound {bound['bound_ms'] / HB:.4f} ms)")
-    # integer counts: the distances and the 1-NN index are exact
-    _check(err == 0.0 and col0 and col1_ok, "K4 disagrees with plain")
-    report["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None,
-                        ms_one_pair=one_ms)
+    outs, times, errs = {}, {}, []
+    for nb in (HB, 1):
+        args = (hq[:nb], ht[:nb], hmask[:nb])
+        kd, ki = fused_hamming_top2(*args)
+        pd, pi = hamming_top2_plain(*args)
+        torch.cuda.synchronize()
+        err = float((kd - pd).abs().max())
+        col0 = bool(torch.equal(ki[..., 0], pi[..., 0]))
+        # column 1: the lowest index other than column 0 at the runner-up
+        # distance, as two argmin passes give it
+        col1 = bool(torch.equal(ki[..., 1], pi[..., 1]))
+        ties = float((pd[..., 0] == pd[..., 1]).float().mean())
+        print(f"kernel K4 x{nb}: max|dist err| {err:.3g} (tol 0), column 0 equal {col0}, "
+              f"column 1 equal {col1}, tied best/runner-up on {ties:.4f} of rows")
+        # integer counts: the distances and both indices are exact
+        _check(err == 0.0 and col0 and col1, f"K4 x{nb} disagrees with plain")
+        bound = _bound(4 * nb * 2 * HN * HW + nb * HN + 8 * nb * HN * 2,
+                       nb * HN * HN * HW, POPC_PER_S)
+        times[nb] = (*measure(f"K4 x{nb}", fused_hamming_top2, hamming_top2_plain, args,
+                              bound, plain_iters=3 if nb > 1 else 20), bound)
+        outs[nb] = (kd, ki)
+        errs.append(err)
+    same = all(torch.equal(a, b[:1]) for a, b in zip(outs[1], outs[HB]))
+    print(f"kernel K4: one pair == its rows of the batch bit for bit: {same}")
+    _check(same, "K4: one-pair launch differs from the batched one")
+    report["K4"] = entry(max(errs), times[HB], times[1])
 
     # -- 4. the slices: the port's main paths -----------------------------------
     from points_matching_tpu_torch.core.config import named_config
@@ -487,7 +562,8 @@ def main() -> int:
         dict(name="fused_l2_top2", route="cuda", source=src + "matching_top2.cu",
              replaces=pallas + "matching_kernel.py:192",
              **launches("fused_l2_top2"), **report["K1_f32"],
-             bf16={k: report["K1_bf16"][k] for k in ("max_abs_err", "ms", "plain_ms")}),
+             bf16={k: report["K1_bf16"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "ms_one_pair", "plain_ms_one_pair")}),
         dict(name="fused_l2_top2_points", route="cuda", source=src + "matching_top2.cu",
              replaces=pallas + "matching_kernel.py:275",
              **launches("fused_l2_top2_points"), **report["K1b"]),

@@ -8,122 +8,210 @@
 // smallest and the runner-up distance (f32 counts) and their columns; the
 // [N1, N2] distance matrix never exists in memory.
 //
-// Design (K1's, with integers): one block = one pair × 128 query rows, one
-// thread per query row.  The row's 8 query words live in registers; train
-// rows are staged through shared memory in tiles of 1024 rows (32 KB) and
-// read back as broadcasts (every thread of a warp reads the same address),
-// two 16-byte loads per train row.  A distance is 8 XORs, 8 __popc and the
-// adds; an invalid train row adds kSentinel, which no valid count reaches.
-// Each thread scans the columns in increasing order and keeps (b1, b2, i1,
-// i2) in registers with the strict `<` update
-//     d < b1 → (b2, i2) = (b1, i1), (b1, i1) = (d, j);  else d < b2 → (b2, i2) = (d, j)
-// which gives column 0 = the lowest index attaining the minimum and column
-// 1 = the lowest index other than column 0 attaining the runner-up — the
-// answer of two argmin passes (the plain version and the reference's XLA
-// knn_match).  The TPU kernel's cross-tile duel can return another index
-// tied at the runner-up distance, so the tests hold column 1 only to
-// "attains the runner-up distance".  The sentinels start at (kSentinel,
-// index 0) and are reported as 1e30, which reproduces the reference's
-// answer when fewer than two train rows are valid.
+// Grid (K1's): (query tiles of 256 rows) × (S train splits) × (pairs).  The
+// wrapper picks S from the pair count and the SM count
+// (`_build.train_splits`) so that one pair of 1024 × 1024 still launches ≥
+// 132 blocks (4 query tiles × 33 splits); at 64 pairs S = 1.  Split s scans
+// the train columns [s·N2/S, (s+1)·N2/S).
+//
+// Block: 128 threads, each holding 2 query rows (rows tid and tid + 128 of
+// the tile) in registers, 16 words.  Train rows arrive in a double-buffered
+// ring of 256-row tiles (8 KB) by cp.async while the previous tile is
+// consumed, and are read back as warp broadcasts (every thread of a warp
+// reads the same address): each pair of 16-byte loads feeds 16 XOR +
+// __popc, two distances.  An invalid train row adds kSentinel, which no
+// valid count reaches; its mask byte is loaded one tile ahead.
+//
+// Top-2: each thread visits its columns in increasing order with the strict
+// `<` update (PmtTop2::push) from the sentinels (kSentinel, 0).  With S = 1
+// the block writes the result; with S > 1 it leaves a partial (d1, i1, d2,
+// i2) per (split, row) in scratch and a second kernel on the same stream
+// merges the S partials lexicographically by (d, column) — exact
+// (pmt_common.cuh: PmtTop2).  So column 0 is the lowest index attaining the
+// minimum and column 1 the lowest index other than column 0 attaining the
+// runner-up — the answer of two argmin passes (the plain version and the
+// reference's XLA knn_match) on every row.  The TPU kernel's cross-tile duel
+// can return another index tied at the runner-up distance, so the parity
+// tests against it hold column 1 only to "attains the runner-up distance".
+// Sentinels are reported as 1e30, which reproduces the reference's answer
+// when fewer than two train rows are valid.
 //
 // What bounds it on the card: POPC throughput.  sm_90 retires 16 population
 // counts per clock per SM (one quarter of its integer-ALU rate), and the
 // kernel needs B·N1·N2·W of them; the XORs and adds go to the 64-wide
 // integer pipe and the broadcast loads to the LSU.  At 64 pairs × 1024 ×
 // 1024 × 8 words that is 5.4e8 POPC ≈ 0.13 ms at 1.98 GHz on 132 SMs,
-// against 4 MB of inputs (~1.3 µs at 3.35 TB/s).  One pair of 1024 rows
-// fills only 8 blocks of 128 threads on a 132-SM card: the single-pair
-// path is occupancy-bound until the train axis is split across blocks.
+// against 4 MB of inputs (~1.3 µs at 3.35 TB/s); one pair needs 8.4e6 POPC,
+// ~2 µs, below the time a launch takes.  A tensor-core path
+// (mma .b1 .and.popc: popc(a) + popc(b) − 2·popc(a & b)) is a later option.
 #include "pmt_common.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;
-constexpr int kTileRows = 1024;          // 32 KB of train rows per tile
 constexpr int W = 8;                     // 32-bit words per descriptor: 256-bit ORB
+constexpr int kThreads = 128;
+constexpr int kRowsPerThread = 2;
+constexpr int kRowsPerBlock = kThreads * kRowsPerThread;
+constexpr int kTileRows = 256;           // 8 KB of train rows per tile
 constexpr int kSentinel = 1 << 30;       // "1e30": above any count (≤ 32·W)
+constexpr int kMergeThreads = 256;
 
-__global__ void __launch_bounds__(kRowsPerBlock)
+__device__ __forceinline__ int hamming(const uint4& qa, const uint4& qb, const uint4& u,
+                                       const uint4& v) {
+  return __popc(qa.x ^ u.x) + __popc(qa.y ^ u.y) + __popc(qa.z ^ u.z) +
+         __popc(qa.w ^ u.w) + __popc(qb.x ^ v.x) + __popc(qb.y ^ v.y) +
+         __popc(qb.z ^ v.z) + __popc(qb.w ^ v.w);
+}
+
+__device__ __forceinline__ void write_result(const PmtTop2<int>& p, size_t o,
+                                             float* __restrict__ dist,
+                                             int* __restrict__ idx) {
+  dist[2 * o + 0] = p.d1 >= kSentinel ? kPmtBig : static_cast<float>(p.d1);
+  dist[2 * o + 1] = p.d2 >= kSentinel ? kPmtBig : static_cast<float>(p.d2);
+  idx[2 * o + 0] = p.i1;
+  idx[2 * o + 1] = p.i2;
+}
+
+__global__ void __launch_bounds__(kThreads)
 hamming_top2_kernel(const uint32_t* __restrict__ q,
                     const uint32_t* __restrict__ t,
                     const uint8_t* __restrict__ t_mask,
-                    float* __restrict__ dist, int* __restrict__ idx, int N1,
-                    int N2) {
-  __shared__ uint4 ts[kTileRows * (W / 4)];
-  __shared__ int bias[kTileRows];
+                    float* __restrict__ dist, int* __restrict__ idx,
+                    int4* __restrict__ part, int N1, int N2) {
+  __shared__ uint4 ts[2][kTileRows * (W / 4)];
+  __shared__ int bias[2][kTileRows];
 
-  const int b = blockIdx.y;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  const bool active = row < N1;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z, s = blockIdx.y, S = gridDim.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  int begin, end;
+  pmt_split_range(s, S, N2, &begin, &end);
+  const int ntiles = (end - begin + kTileRows - 1) / kTileRows;
+
   const uint4* tb = reinterpret_cast<const uint4*>(t) +
                     static_cast<size_t>(b) * N2 * (W / 4);
   const uint8_t* mb = t_mask + static_cast<size_t>(b) * N2;
 
-  uint4 q0 = make_uint4(0u, 0u, 0u, 0u), q1 = q0;
-  if (active) {
-    const uint4* qv = reinterpret_cast<const uint4*>(q) +
-                      (static_cast<size_t>(b) * N1 + row) * (W / 4);
-    q0 = qv[0];
-    q1 = qv[1];
-  }
-
-  int b1 = kSentinel, b2 = kSentinel;
-  int i1 = 0, i2 = 0;
-
-  for (int base = 0; base < N2; base += kTileRows) {
-    const int rows = min(kTileRows, N2 - base);
-    __syncthreads();  // the previous tile is fully consumed
+  auto stage = [&](int tile, int buf) {
+    const int base = begin + tile * kTileRows;
+    const int n = min(kTileRows, end - base) * (W / 4);
     const uint4* src = tb + static_cast<size_t>(base) * (W / 4);
-    for (int e = threadIdx.x; e < rows * (W / 4); e += kRowsPerBlock) ts[e] = src[e];
-    for (int r = threadIdx.x; r < rows; r += kRowsPerBlock)
-      bias[r] = mb[base + r] ? 0 : kSentinel;
-    __syncthreads();
+    for (int e = tid; e < n; e += kThreads) pmt_cp_async16(&ts[buf][e], src + e);
+  };
+  // the bias of this thread's rows tid and tid + 128 of a tile, two bits
+  auto valid_bits = [&](int tile) -> int {
+    int bits = 0;
+#pragma unroll
+    for (int h = 0; h < kTileRows / kThreads; ++h) {
+      const int j = begin + tile * kTileRows + tid + h * kThreads;
+      if (tile < ntiles && j < end && mb[j]) bits |= 1 << h;
+    }
+    return bits;
+  };
 
-    if (active) {
-#pragma unroll 4
-      for (int r = 0; r < rows; ++r) {
-        const uint4 u = ts[2 * r];
-        const uint4 v = ts[2 * r + 1];
-        const int d = __popc(q0.x ^ u.x) + __popc(q0.y ^ u.y) +
-                      __popc(q0.z ^ u.z) + __popc(q0.w ^ u.w) +
-                      __popc(q1.x ^ v.x) + __popc(q1.y ^ v.y) +
-                      __popc(q1.z ^ v.z) + __popc(q1.w ^ v.w) + bias[r];
-        const int j = base + r;
-        if (d < b1) {
-          b2 = b1;
-          i2 = i1;
-          b1 = d;
-          i1 = j;
-        } else if (d < b2) {
-          b2 = d;
-          i2 = j;
-        }
-      }
+  if (ntiles > 0) stage(0, 0);
+  pmt_cp_async_commit();
+  int m_cur = valid_bits(0);
+
+  uint4 qa[kRowsPerThread], qc[kRowsPerThread];
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) {
+    const int row = row0 + tid + h * kThreads;
+    qa[h] = qc[h] = make_uint4(0u, 0u, 0u, 0u);
+    if (row < N1) {
+      const uint4* qv = reinterpret_cast<const uint4*>(q) +
+                        (static_cast<size_t>(b) * N1 + row) * (W / 4);
+      qa[h] = qv[0];
+      qc[h] = qv[1];
     }
   }
 
-  if (!active) return;
-  const size_t o = static_cast<size_t>(b) * N1 + row;
-  dist[2 * o + 0] = b1 >= kSentinel ? kPmtBig : static_cast<float>(b1);
-  dist[2 * o + 1] = b2 >= kSentinel ? kPmtBig : static_cast<float>(b2);
-  idx[2 * o + 0] = i1;
-  idx[2 * o + 1] = i2;
+  PmtTop2<int> best[kRowsPerThread];
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) best[h] = PmtTop2<int>::empty(kSentinel);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) stage(it + 1, buf ^ 1);
+    pmt_cp_async_commit();
+    const int m_next = valid_bits(it + 1);
+#pragma unroll
+    for (int h = 0; h < kTileRows / kThreads; ++h)
+      bias[buf][tid + h * kThreads] = (m_cur >> h) & 1 ? 0 : kSentinel;
+    pmt_cp_async_wait<1>();                    // tile `it` has landed
+    __syncthreads();
+
+    const int base = begin + it * kTileRows;
+    const int rows = min(kTileRows, end - base);
+    const uint4* tv = ts[buf];
+    const int* bv = bias[buf];
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      const uint4 u = tv[2 * r];
+      const uint4 v = tv[2 * r + 1];
+      const int bb = bv[r];
+#pragma unroll
+      for (int h = 0; h < kRowsPerThread; ++h)
+        best[h].push(hamming(qa[h], qc[h], u, v) + bb, base + r);
+    }
+    m_cur = m_next;
+    __syncthreads();                           // tile consumed before refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) {
+    const int row = row0 + tid + h * kThreads;
+    if (row >= N1) continue;
+    const size_t o = static_cast<size_t>(b) * N1 + row;
+    if (S == 1)
+      write_result(best[h], o, dist, idx);
+    else
+      part[(static_cast<size_t>(b) * S + s) * N1 + row] = pmt_pack(best[h]);
+  }
+}
+
+// one thread per (pair, query row): the S partials merged in split order
+__global__ void __launch_bounds__(kMergeThreads)
+hamming_top2_merge_kernel(const int4* __restrict__ part, float* __restrict__ dist,
+                          int* __restrict__ idx, int B, int N1, int S) {
+  const size_t o = static_cast<size_t>(blockIdx.x) * kMergeThreads + threadIdx.x;
+  if (o >= static_cast<size_t>(B) * N1) return;
+  const int b = static_cast<int>(o / N1), row = static_cast<int>(o % N1);
+  const int4* pp = part + static_cast<size_t>(b) * S * N1 + row;
+  PmtTop2<int> best, next;
+  pmt_unpack(pp[0], &best);
+  for (int s = 1; s < S; ++s) {
+    pmt_unpack(pp[static_cast<size_t>(s) * N1], &next);
+    best.merge(next);
+  }
+  write_result(best, o, dist, idx);
 }
 
 }  // namespace
 
 // q [B, N1, W] u32, t [B, N2, W] u32, t_mask [B, N2] bool →
-// dist [B, N1, 2] f32 counts, idx [B, N1, 2] i32.  W must be 8.
+// dist [B, N1, 2] f32 counts, idx [B, N1, 2] i32.  W must be 8.  S train
+// splits; with S > 1, part [B, S, N1] int4 is the wrapper's scratch.
+// Returns the status of the launches.
 PMT_EXPORT int pmt_hamming_top2(const void* q, const void* t, const void* t_mask,
-                                void* dist, void* idx, int B, int N1, int N2,
-                                int W_in, void* stream) {
-  if (W_in != W) return static_cast<int>(cudaErrorInvalidValue);
+                                void* dist, void* idx, void* part, int B, int N1,
+                                int N2, int W_in, int S, void* stream) {
+  if (W_in != W || S < 1 || S > 65535 || B > 65535 || (S > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
-  const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, B);
-  hamming_top2_kernel<<<grid, kRowsPerBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, S, B);
+  hamming_top2_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
       static_cast<const uint8_t*>(t_mask), static_cast<float*>(dist),
-      static_cast<int*>(idx), N1, N2);
+      static_cast<int*>(idx), static_cast<int4*>(part), N1, N2);
+  if (S > 1) {
+    const size_t rows = static_cast<size_t>(B) * N1;
+    hamming_top2_merge_kernel<<<static_cast<unsigned>((rows + kMergeThreads - 1) /
+                                                      kMergeThreads),
+                                kMergeThreads, 0, st>>>(
+        static_cast<const int4*>(part), static_cast<float*>(dist),
+        static_cast<int*>(idx), B, N1, S);
+  }
   PMT_RETURN_LAUNCH_STATUS();
 }

@@ -8,179 +8,298 @@
 // their train indices; invalid train rows get ‖t‖² = 1e30; ties go to the
 // lowest column; the [N1, N2] distance matrix never exists in memory.
 //
-// Design: one block = one pair × 128 query rows, one thread per query row.
-// The query row lives in registers; train rows are staged through shared
-// memory in tiles of 32 KB and read back as broadcasts (every thread of a
-// warp reads the same address), so each float4 shared load feeds 4 FMAs.
-// Each thread scans the train columns in increasing order and keeps its
-// running (b1, b2, i1, i2) in registers; the strict `<` update
-//     d < b1 → (b2, i2) = (b1, i1), (b1, i1) = (d, j);  else d < b2 → (b2, i2) = (d, j)
-// reproduces the reference's "lowest column on ties" and its true 2-NN.
-// The sentinels start at (1e30, index 0), which reproduces the reference's
-// answer when fewer than two train rows are valid.
+// Grid: (query tiles of 128 rows) × (S train splits) × (pairs).  The
+// wrapper picks S from the pair count and the SM count
+// (`_build.train_splits`) so that one pair of 512 × 512 still launches ≥ 132
+// blocks (4 query tiles × 33 splits); at 64 pairs S = 1 (256 blocks).
+// Split s scans the train columns [s·N2/S, (s+1)·N2/S).
 //
-// What bounds it on the card: fp32 FFMA issue plus one shared-memory
-// broadcast load per 4 FMAs — 2·N1·N2·D flops per pair against
-// (N1 + N2)·D·4 bytes, i.e. compute-bound (D = 64: ~32 flop/byte per
-// pair even before the tile reuse).  Tensor cores (wgmma) are the later
-// speed-up; the f32 path would need 3×TF32 to stay exact.
+// Block: 128 threads, SGEMM-style register tiles.  The block's 128 query
+// rows and a double-buffered ring of 64-row train tiles live in shared
+// memory (69 KB, dynamic; rows padded to 68 floats); train tiles arrive by
+// cp.async while the previous tile is consumed, two barriers a tile.  Lane
+// (qg, cg) of warp w holds a 4 × 16 micro-tile: query rows 32w + qg + 8r
+// and tile columns cg + 4c.  The 8 lanes of a quarter-warp share their
+// columns (a train load is one broadcast address per quarter) and read 8
+// query rows that fall in disjoint bank groups, so 20 16-byte loads feed
+// 256 FMAs a k-step of 4.  Each (query, train) cell is ONE fp32 fmaf chain
+// over k = 0..63 in order, whatever the split or the tiling, so one pair
+// alone and the same pair inside a batch give the same bits.  ‖t‖² and ‖q‖²
+// are fp32, from the unrounded rows: four threads per row each sum 16 k in
+// one chain, then (s0 + s1) + (s2 + s3).
 //
-// compute_dtype='bf16': both operands are rounded to bf16 and the products
-// accumulate in fp32 — exactly what the MXU path computes (bf16 × bf16
-// products are exact in fp32).  ‖t‖² and ‖q‖² stay fp32, as in the reference.
+// Top-2: each thread visits its columns in increasing order with the strict
+// `<` update (PmtTop2::push), starting from the sentinels (1e30, 0); the 4
+// lanes that share query rows merge lexicographically by (d, column)
+// through warp shuffles.  With S = 1 the block writes the result; with S > 1
+// it leaves a partial (d1, i1, d2, i2) per (split, row) in scratch and a
+// second kernel on the same stream merges the S partials in the same
+// lexicographic order, adds ‖q‖², clamps, and (K1b) loads t_points[i1] —
+// exact: a direct load (the TPU kernel needed a one-hot dot with a 3-term
+// bf16 split for this).  The merge is exact (pmt_common.cuh: PmtTop2), so
+// the answer is the in-order scan's and the plain version's two argmin
+// passes' on every row, with (1e30, 0) where fewer than two rows are valid.
+//
+// What bounds it on the card: fp32 FFMA issue — 2·N1·N2·D flops per pair
+// against (N1 + N2)·D·4 bytes, ~32 flop/byte at D = 64 before any tile
+// reuse.  What holds it at about half of that (64 pairs): every 16-byte
+// shared load holds the SM's shared-memory pipe for 2 clocks as a broadcast
+// and 4 when the lanes of a quarter-warp read distinct rows, and 64 pairs of
+// 512 rows give only ~8 warps an SM (examples/probe_sm_rates_torch.py
+// measures both rates).  One pair is launch- and latency-bound.  A 3×TF32
+// tensor-core path would move the bound but reorder the sums and flip
+// near-ties; the contract is true fp32, so it is not here.
+//
+// compute_dtype='bf16': both operands are rounded to bf16 in shared memory
+// after ‖·‖² is taken, and the products accumulate in fp32 — exactly what
+// the MXU path computes (bf16 × bf16 products are exact in fp32).
 #include "pmt_common.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;
-constexpr int kTileFloats = 8192;  // 32 KB of train rows per tile
-constexpr int D = 64;              // descriptor width: 64-d SURF
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int D = 64;                // descriptor width: 64-d SURF
+constexpr int LD = D + 4;            // padded shared-memory row, in floats
+constexpr int kThreads = 128;
+constexpr int kRowsPerBlock = kThreads;   // query rows of a block: 32 a warp
+constexpr int kPrepRows = kThreads / 4;   // rows of one ‖·‖² pass
+constexpr int kTileCols = 64;        // train rows of a tile: 4 lane groups × 16
+constexpr int kSmemFloats = (kRowsPerBlock + 2 * kTileCols) * LD + 2 * kTileCols +
+                            kRowsPerBlock;
+constexpr int kSmemBytes = kSmemFloats * 4;   // 70,656: dynamic, above 48 KB
+constexpr int kMergeThreads = 256;
 
 __device__ __forceinline__ float4 round_bf16(float4 v) {
-  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
-                     round_bf16(v.w));
+  return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                     __bfloat162float(__float2bfloat16_rn(v.y)),
+                     __bfloat162float(__float2bfloat16_rn(v.z)),
+                     __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+// ‖row‖² of a 64-float shared-memory row, four lanes per row: lane `part`
+// sums k = 16·part..16·part+15 in one chain; every lane of the four gets
+// (s0 + s1) + (s2 + s3), bit for bit (IEEE addition commutes).  With BF16
+// the lane then rounds its quarter of the row in place: ‖·‖² is taken on
+// the unrounded row, and no other lane reads that quarter in this phase.
+template <bool BF16>
+__device__ __forceinline__ float prep_row(float* row, int part) {
+  float4* x = reinterpret_cast<float4*>(row + 16 * part);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = x[i];
+    s = fmaf(v.x, v.x, s);
+    s = fmaf(v.y, v.y, s);
+    s = fmaf(v.z, v.z, s);
+    s = fmaf(v.w, v.w, s);
+    if (BF16) x[i] = round_bf16(v);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+template <bool POINTS>
+__device__ __forceinline__ void write_result(const PmtTop2<float>& p, float q2,
+                                             size_t o, int b,
+                                             const float* __restrict__ t_points,
+                                             float* __restrict__ dist,
+                                             int* __restrict__ idx,
+                                             float* __restrict__ pts, int N2,
+                                             int P) {
+  dist[2 * o + 0] = fmaxf(p.d1 + q2, 0.f);
+  dist[2 * o + 1] = fmaxf(p.d2 + q2, 0.f);
+  idx[2 * o + 0] = p.i1;
+  idx[2 * o + 1] = p.i2;
+  if (POINTS) {
+    const float* tp = t_points + (static_cast<size_t>(b) * N2 + p.i1) * P;
+    for (int k = 0; k < P; ++k) pts[o * P + k] = N2 > 0 ? tp[k] : 0.f;
+  }
 }
 
 template <bool BF16, bool POINTS>
-__global__ void __launch_bounds__(kRowsPerBlock)
+__global__ void __launch_bounds__(kThreads, 3)
 l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
                const uint8_t* __restrict__ t_mask,
                const float* __restrict__ t_points, float* __restrict__ dist,
-               int* __restrict__ idx, float* __restrict__ pts, int N1, int N2,
-               int P) {
-  constexpr int TT = kTileFloats / D;  // train rows per tile
-  __shared__ __align__(16) float ts[TT * D];
-  __shared__ float t2s[TT];
+               int* __restrict__ idx, float* __restrict__ pts,
+               int4* __restrict__ part, float* __restrict__ q2buf, int N1,
+               int N2, int P) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                // [kRowsPerBlock][LD]
+  float* ts = qs + kRowsPerBlock * LD;             // [2][kTileCols][LD]
+  float* t2s = ts + 2 * kTileCols * LD;            // [2][kTileCols]
+  float* q2s = t2s + 2 * kTileCols;                // [kRowsPerBlock]
 
-  const int b = blockIdx.y;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  const bool active = row < N1;
+  const int tid = threadIdx.x;
+  // compute: lane (qg, cg) of warp w holds query rows 32w + qg + 8r (r < 4)
+  // and tile columns cg + 4c (c < 16)
+  const int qg = tid & 7, cg = (tid >> 3) & 3, w = tid >> 5;
+  const int pr = tid >> 2, pq = tid & 3;       // ‖·‖²: rows pr + kPrepRows·h; quarter
+  const int b = blockIdx.z, s = blockIdx.y, S = gridDim.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  int begin, end;
+  pmt_split_range(s, S, N2, &begin, &end);
+  const int ntiles = (end - begin + kTileCols - 1) / kTileCols;
+
+  const float* qb = q + static_cast<size_t>(b) * N1 * D;
   const float* tb = t + static_cast<size_t>(b) * N2 * D;
   const uint8_t* mb = t_mask + static_cast<size_t>(b) * N2;
 
-  float qr[D];
-  float q2 = 0.f;
-  if (active) {
-    const float4* qv = reinterpret_cast<const float4*>(
-        q + (static_cast<size_t>(b) * N1 + row) * D);
-#pragma unroll
-    for (int k = 0; k < D / 4; ++k) {
-      const float4 v = qv[k];
-      qr[4 * k + 0] = v.x;
-      qr[4 * k + 1] = v.y;
-      qr[4 * k + 2] = v.z;
-      qr[4 * k + 3] = v.w;
+  // rows past the end are zero-filled: a zero query row is never written
+  // out, a zero train row gets ‖t‖² = 1e30 and never beats the sentinel
+  for (int e = tid; e < kRowsPerBlock * (D / 4); e += kThreads) {
+    const int r = e >> 4, c = 4 * (e & 15);
+    const bool ok = row0 + r < N1;
+    pmt_cp_async16_zfill(&qs[r * LD + c],
+                         ok ? qb + static_cast<size_t>(row0 + r) * D + c : q, ok);
+  }
+  auto stage = [&](int tile, int buf) {
+    const int base = begin + tile * kTileCols;
+    float* dst = ts + buf * kTileCols * LD;
+    for (int e = tid; e < kTileCols * (D / 4); e += kThreads) {
+      const int r = e >> 4, c = 4 * (e & 15);
+      const bool ok = base + r < end;
+      pmt_cp_async16_zfill(&dst[r * LD + c],
+                           ok ? tb + static_cast<size_t>(base + r) * D + c : t, ok);
     }
+  };
+  // the mask bits of this thread's ‖t‖² rows of a tile, loaded a tile ahead
+  auto valid_bits = [&](int tile) -> int {
+    int bits = 0;
 #pragma unroll
-    for (int k = 0; k < D; ++k) q2 = fmaf(qr[k], qr[k], q2);
-    if (BF16) {
-#pragma unroll
-      for (int k = 0; k < D; ++k) qr[k] = round_bf16(qr[k]);
+    for (int h = 0; h < kTileCols / kPrepRows; ++h) {
+      const int j = begin + tile * kTileCols + pr + kPrepRows * h;
+      if (tile < ntiles && j < end && mb[j]) bits |= 1 << h;
     }
-  } else {
+    return bits;
+  };
+
+  if (ntiles > 0) stage(0, 0);
+  pmt_cp_async_commit();
+  int m_cur = valid_bits(0);
+  pmt_cp_async_wait<0>();
+  __syncthreads();
 #pragma unroll
-    for (int k = 0; k < D; ++k) qr[k] = 0.f;
+  for (int h = 0; h < kRowsPerBlock / kPrepRows; ++h) {
+    const float s2 = prep_row<BF16>(&qs[(pr + kPrepRows * h) * LD], pq);
+    if (pq == 0) q2s[pr + kPrepRows * h] = s2;
   }
 
-  float b1 = kPmtBig, b2 = kPmtBig;
-  int i1 = 0, i2 = 0;
-
-  for (int base = 0; base < N2; base += TT) {
-    const int rows = min(TT, N2 - base);
-    __syncthreads();  // the previous tile is fully consumed
-    const float4* src = reinterpret_cast<const float4*>(
-        tb + static_cast<size_t>(base) * D);
-    float4* dst = reinterpret_cast<float4*>(ts);
-    for (int e = threadIdx.x; e < rows * (D / 4); e += kRowsPerBlock) {
-      const float4 v = src[e];
-      dst[e] = BF16 ? round_bf16(v) : v;
-    }
-    // ‖t‖² of the UNROUNDED row (fp32, as the reference computes it);
-    // the re-read hits the cache lines the staging loop just brought in
-    for (int r = threadIdx.x; r < rows; r += kRowsPerBlock) {
-      const float4* tr = reinterpret_cast<const float4*>(
-          tb + static_cast<size_t>(base + r) * D);
-      float s = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < D / 4; ++k) {
-        const float4 v = tr[k];
-        s = fmaf(v.x, v.x, s);
-        s = fmaf(v.y, v.y, s);
-        s = fmaf(v.z, v.z, s);
-        s = fmaf(v.w, v.w, s);
-      }
-      t2s[r] = mb[base + r] ? s : kPmtBig;
-    }
-    __syncthreads();
-
-    if (active) {
-      for (int r = 0; r < rows; ++r) {
-        const float4* tv = reinterpret_cast<const float4*>(ts + r * D);
-        // four partial sums: independent FMA chains for latency hiding
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  PmtTop2<float> best[4];
 #pragma unroll
-        for (int k = 0; k < D / 4; ++k) {
-          const float4 v = tv[k];
-          a0 = fmaf(qr[4 * k + 0], v.x, a0);
-          a1 = fmaf(qr[4 * k + 1], v.y, a1);
-          a2 = fmaf(qr[4 * k + 2], v.z, a2);
-          a3 = fmaf(qr[4 * k + 3], v.w, a3);
-        }
-        const float dot = (a0 + a1) + (a2 + a3);
-        const float d = t2s[r] - 2.0f * dot;
-        const int j = base + r;
-        if (d < b1) {
-          b2 = b1;
-          i2 = i1;
-          b1 = d;
-          i1 = j;
-        } else if (d < b2) {
-          b2 = d;
-          i2 = j;
-        }
+  for (int r = 0; r < 4; ++r) best[r] = PmtTop2<float>::empty(kPmtBig);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    float* tile = ts + buf * kTileCols * LD;
+    pmt_cp_async_wait<0>();                    // tile `it` has landed
+    __syncthreads();                           // ... for all; tile it-1 consumed
+    if (it + 1 < ntiles) stage(it + 1, buf ^ 1);
+    pmt_cp_async_commit();
+    const int m_next = valid_bits(it + 1);
+#pragma unroll
+    for (int h = 0; h < kTileCols / kPrepRows; ++h) {
+      const float s2 = prep_row<BF16>(&tile[(pr + kPrepRows * h) * LD], pq);
+      if (pq == 0) t2s[buf * kTileCols + pr + kPrepRows * h] = (m_cur >> h) & 1 ? s2 : kPmtBig;
+    }
+    __syncthreads();                           // ‖t‖² and (bf16) rounding done
+
+    float acc[4][16];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+    const float* qrow = &qs[(32 * w + qg) * LD];
+    const float* tcol = &tile[cg * LD];
+#pragma unroll 2
+    for (int k = 0; k < D; k += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(qrow + 8 * r * LD + k);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(tcol + 4 * c * LD + k);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(a[r].x, v.x, acc[r][c]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(a[r].y, v.y, acc[r][c]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(a[r].z, v.z, acc[r][c]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(a[r].w, v.w, acc[r][c]);
       }
     }
+    const int base = begin + it * kTileCols;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {             // columns in increasing order
+      const float t2 = t2s[buf * kTileCols + cg + 4 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) best[r].push(t2 - 2.0f * acc[r][c], base + cg + 4 * c);
+    }
+    m_cur = m_next;
+  }
+  __syncthreads();                             // q2s is visible with no tile too
+
+  // the 4 lanes with the same qg hold the same query rows: lanes differ in
+  // bits 3 and 4
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    best[r].merge_lane(8);
+    best[r].merge_lane(16);
   }
 
-  if (!active) return;
-  const size_t o = static_cast<size_t>(b) * N1 + row;
-  dist[2 * o + 0] = fmaxf(b1 + q2, 0.f);
-  dist[2 * o + 1] = fmaxf(b2 + q2, 0.f);
-  idx[2 * o + 0] = i1;
-  idx[2 * o + 1] = i2;
-  if (POINTS) {
-    // exact: a direct load of t_points[i1] (the TPU kernel needed a
-    // one-hot dot with a 3-term bf16 split for this)
-    const float* tp = t_points + (static_cast<size_t>(b) * N2 + i1) * P;
-    for (int p = 0; p < P; ++p) pts[o * P + p] = tp[p];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int lr = 32 * w + qg + 8 * r;        // lane cg writes its row r = cg
+    if (cg != r || row0 + lr >= N1) continue;
+    const size_t o = static_cast<size_t>(b) * N1 + row0 + lr;
+    if (S == 1) {
+      write_result<POINTS>(best[r], q2s[lr], o, b, t_points, dist, idx, pts, N2, P);
+    } else {
+      part[(static_cast<size_t>(b) * S + s) * N1 + row0 + lr] = pmt_pack(best[r]);
+      if (s == 0) q2buf[o] = q2s[lr];
+    }
   }
 }
 
+// one thread per (pair, query row): the S partials merged in split order
+template <bool POINTS>
+__global__ void __launch_bounds__(kMergeThreads)
+l2_top2_merge_kernel(const int4* __restrict__ part, const float* __restrict__ q2buf,
+                     const float* __restrict__ t_points, float* __restrict__ dist,
+                     int* __restrict__ idx, float* __restrict__ pts, int B, int N1,
+                     int N2, int P, int S) {
+  const size_t o = static_cast<size_t>(blockIdx.x) * kMergeThreads + threadIdx.x;
+  if (o >= static_cast<size_t>(B) * N1) return;
+  const int b = static_cast<int>(o / N1), row = static_cast<int>(o % N1);
+  const int4* pp = part + static_cast<size_t>(b) * S * N1 + row;
+  PmtTop2<float> best, next;
+  pmt_unpack(pp[0], &best);
+  for (int s = 1; s < S; ++s) {
+    pmt_unpack(pp[static_cast<size_t>(s) * N1], &next);
+    best.merge(next);
+  }
+  write_result<POINTS>(best, q2buf[o], o, b, t_points, dist, idx, pts, N2, P);
+}
+
+template <bool BF16, bool POINTS>
 void launch(const float* q, const float* t, const uint8_t* t_mask,
-            const float* t_points, float* dist, int* idx, float* pts, int B,
-            int N1, int N2, int P, bool bf16, cudaStream_t stream) {
-  const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, B);
-  const dim3 block(kRowsPerBlock);
-  if (bf16) {
-    if (t_points)
-      l2_top2_kernel<true, true><<<grid, block, 0, stream>>>(
-          q, t, t_mask, t_points, dist, idx, pts, N1, N2, P);
-    else
-      l2_top2_kernel<true, false><<<grid, block, 0, stream>>>(
-          q, t, t_mask, t_points, dist, idx, pts, N1, N2, P);
-  } else {
-    if (t_points)
-      l2_top2_kernel<false, true><<<grid, block, 0, stream>>>(
-          q, t, t_mask, t_points, dist, idx, pts, N1, N2, P);
-    else
-      l2_top2_kernel<false, false><<<grid, block, 0, stream>>>(
-          q, t, t_mask, t_points, dist, idx, pts, N1, N2, P);
+            const float* t_points, float* dist, int* idx, float* pts, int4* part,
+            float* q2buf, int B, int N1, int N2, int P, int S,
+            cudaStream_t stream) {
+  const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, S, B);
+  cudaFuncSetAttribute(l2_top2_kernel<BF16, POINTS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  l2_top2_kernel<BF16, POINTS><<<grid, kThreads, kSmemBytes, stream>>>(
+      q, t, t_mask, t_points, dist, idx, pts, part, q2buf, N1, N2, P);
+  if (S > 1) {
+    const size_t rows = static_cast<size_t>(B) * N1;
+    const unsigned blocks = static_cast<unsigned>((rows + kMergeThreads - 1) / kMergeThreads);
+    l2_top2_merge_kernel<POINTS><<<blocks, kMergeThreads, 0, stream>>>(
+        part, q2buf, t_points, dist, idx, pts, B, N1, N2, P, S);
   }
 }
 
@@ -188,18 +307,35 @@ void launch(const float* q, const float* t, const uint8_t* t_mask,
 
 // q [B, N1, D] f32, t [B, N2, D] f32, t_mask [B, N2] bool,
 // t_points [B, N2, P] f32 or NULL → dist [B, N1, 2] f32, idx [B, N1, 2] i32,
-// pts [B, N1, P] f32 (when t_points is given).  D must be 64.
+// pts [B, N1, P] f32 (when t_points is given).  D must be 64.  S train
+// splits; with S > 1, part [B, S, N1] int4 and q2buf [B, N1] f32 are the
+// wrapper's scratch.  Returns the status of the launches.
 PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
                            const void* t_points, void* dist, void* idx,
-                           void* pts, int B, int N1, int N2, int D_in, int P,
-                           int bf16, void* stream) {
-  if (D_in != D) return static_cast<int>(cudaErrorInvalidValue);
+                           void* pts, void* part, void* q2buf, int B, int N1,
+                           int N2, int D_in, int P, int S, int bf16,
+                           void* stream) {
+  if (D_in != D || S < 1 || S > 65535 || B > 65535 ||
+      (S > 1 && (part == nullptr || q2buf == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
-  launch(static_cast<const float*>(q), static_cast<const float*>(t),
-         static_cast<const uint8_t*>(t_mask),
-         static_cast<const float*>(t_points), static_cast<float*>(dist),
-         static_cast<int*>(idx), static_cast<float*>(pts), B, N1, N2, P, bf16,
-         static_cast<cudaStream_t>(stream));
+  const auto* qf = static_cast<const float*>(q);
+  const auto* tf = static_cast<const float*>(t);
+  const auto* mf = static_cast<const uint8_t*>(t_mask);
+  const auto* tp = static_cast<const float*>(t_points);
+  auto* df = static_cast<float*>(dist);
+  auto* xi = static_cast<int*>(idx);
+  auto* pf = static_cast<float*>(pts);
+  auto* pa = static_cast<int4*>(part);
+  auto* q2 = static_cast<float*>(q2buf);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (tp) launch<true, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+    else launch<true, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+  } else {
+    if (tp) launch<false, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+    else launch<false, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+  }
   PMT_RETURN_LAUNCH_STATUS();
 }
 

@@ -40,14 +40,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name → argtypes (pointers, ints, floats, then the stream)
 _SIGNATURES: Dict[str, list] = {
-    # q, t, t_mask, t_points, dist, idx, pts, B, N1, N2, D, P, bf16, stream
-    "pmt_l2_top2": [_P] * 7 + [_I] * 6 + [_P],
+    # q, t, t_mask, t_points, dist, idx, pts, part, q2, B, N1, N2, D, P, S, bf16, stream
+    "pmt_l2_top2": [_P] * 9 + [_I] * 7 + [_P],
     # F, p1, p2, mask, counts, B, H, N, tau2, stream
     "pmt_ransac_score": [_P] * 5 + [_I] * 3 + [_F, _P],
     # sp1, sp2, F, count, stream
     "pmt_eight_point": [_P] * 3 + [_I, _P],
-    # q, t, t_mask, dist, idx, B, N1, N2, W, stream
-    "pmt_hamming_top2": [_P] * 5 + [_I] * 4 + [_P],
+    # q, t, t_mask, dist, idx, part, B, N1, N2, W, S, stream
+    "pmt_hamming_top2": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 last_build: Dict[str, object] = {}
@@ -121,3 +121,24 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.pmt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def train_splits(pairs: int, query_tiles: int, n_train: int, num_sms: int,
+                 min_cols: int) -> int:
+    """How many blocks share one query tile's train axis in the top-2
+    matchers (K1, K4): the fewest that give pairs × query tiles × splits ≥
+    ``num_sms`` blocks, with at least ``min_cols`` train columns a split;
+    1 where the pairs and query tiles alone fill the card.  The splits'
+    partial top-2s merge exactly, so the count changes no result."""
+    blocks = pairs * query_tiles
+    if blocks == 0 or blocks >= num_sms:
+        return 1
+    return max(1, min(-(-num_sms // blocks), n_train // min_cols))

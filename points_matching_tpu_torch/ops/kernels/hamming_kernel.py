@@ -3,24 +3,29 @@ descriptors, batched over pairs.
 
 Replaces the TPU kernel ``points_matching_tpu/ops/pallas/hamming.py``
 ``fused_hamming_top2``.  CUDA source:
-``points_matching_tpu_torch/csrc/hamming_top2.cu`` (one thread per query
-row, train tiles through shared memory, 8 XOR + ``__popc`` per distance,
-running top-2 in registers — the [N1, N2] matrix never exists).  On the
-card the kernel is bound by POPC throughput (B·N1·N2·W population counts at 16
-per clock per SM).
+``points_matching_tpu_torch/csrc/hamming_top2.cu``: blocks of 256 query rows
+(2 per thread, in registers) × one of S train splits × one pair; cp.async
+double-buffered train tiles read as warp broadcasts, 8 XOR + ``__popc`` per
+distance, a running top-2 per row, merged across splits lexicographically
+by (distance, column), which is exact — the [N1, N2] matrix never exists.
+The wrapper picks S (``_build.train_splits``) so that a launch has at least
+as many blocks as the card has SMs (one pair of 1024 × 1024: 4 × 33 = 132
+blocks; 64 pairs: S = 1), and gives the kernel its scratch for the S
+partials.  On the card the kernel is bound by POPC throughput (B·N1·N2·W
+population counts at 16 per clock per SM).
 
 Descriptor words are ``torch.int32`` tensors holding the uint32 bits.  The
 wrapper takes a leading pair axis, launches the kernel for CUDA tensors and
 runs the plain PyTorch version (``hamming_top2_plain``) for CPU tensors.
 
 Semantics (distances are small integers, so ties are the normal case):
-both distance columns and the column-0 index (lowest column attaining the
-minimum) equal two argmin passes over the full matrix, with every invalid
-train entry exactly 1e30 — the reference's ``knn_match(..., k=2,
-metric='hamming')``.  The kernel's column 1 is the lowest index other than
-column 0 attaining the runner-up distance, as in the plain version; the TPU
-kernel may return another index tied at that distance, so parity with it
-holds column 1 to "attains the runner-up distance".
+both distance columns and both index columns (the lowest column attaining
+the minimum; the lowest other column attaining the runner-up) equal two
+argmin passes over the full matrix, with every invalid train entry exactly
+1e30 — the reference's ``knn_match(..., k=2, metric='hamming')`` and the
+plain version.  The TPU kernel may return another index tied at the
+runner-up distance, so parity with it holds column 1 to "attains the
+runner-up distance".
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from points_matching_tpu_torch.ops.kernels import _build
 Tensor = torch.Tensor
 _BIG = 1e30
 WORDS = 8   # the one width the kernel is built for: 256-bit ORB descriptors
+ROWS_PER_BLOCK = 256    # query rows of a block: kRowsPerBlock in hamming_top2.cu
+MIN_SPLIT_COLS = 16     # train columns a split keeps at least
 
 
 def popcount32(x: Tensor) -> Tensor:
@@ -105,12 +112,18 @@ def fused_hamming_top2(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Te
     lib = _build.library()
     B, N1, _ = q.shape
     N2 = t.shape[1]
+    S = _build.train_splits(B, -(-N1 // ROWS_PER_BLOCK), N2,
+                            _build.sm_count(q.device.index), MIN_SPLIT_COLS)
     dist = torch.empty((B, N1, 2), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, N1, 2), dtype=torch.int32, device=q.device)
+    # the splits' partial top-2s (int4 each), for the merge kernel
+    part = None if S == 1 else torch.empty((B, S, N1, 4), dtype=torch.int32,
+                                           device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.pmt_hamming_top2(
             q.data_ptr(), t.data_ptr(), t_mask.data_ptr(), dist.data_ptr(),
-            idx.data_ptr(), B, N1, N2, WORDS, torch.cuda.current_stream().cuda_stream)
+            idx.data_ptr(), None if part is None else part.data_ptr(),
+            B, N1, N2, WORDS, S, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_hamming_top2")
     fused_hamming_top2.launches += 1
     return dist, idx

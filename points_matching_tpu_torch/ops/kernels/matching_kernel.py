@@ -2,9 +2,15 @@
 
 Replaces the TPU kernels ``points_matching_tpu/ops/pallas/matching_kernel.py``
 ``fused_l2_top2`` and ``fused_l2_top2_points``.  CUDA source:
-``points_matching_tpu_torch/csrc/matching_top2.cu`` (one thread per query
-row, train tiles through shared memory, running top-2 in registers — the
-[N1, N2] matrix never exists).  On the card the kernel is bound by fp32 FMA
+``points_matching_tpu_torch/csrc/matching_top2.cu``: blocks of 128 query
+rows × one of S train splits × one pair; 4 × 16 register tiles of fp32 FMA
+chains over cp.async double-buffered train tiles in shared memory; a
+running top-2 per thread, merged across threads and then across splits
+lexicographically by (distance, column), which is exact — the [N1, N2]
+matrix never exists.  The wrapper picks S (``_build.train_splits``) so that
+a launch has at least as many blocks as the card has SMs (one pair of 512 ×
+512: 4 × 33 = 132 blocks; 64 pairs: S = 1), and gives the kernel its
+scratch for the S partials.  On the card the kernel is bound by fp32 FMA
 issue (2·N1·N2·D flops per pair against (N1+N2)·D·4 bytes).
 
 Each wrapper takes a leading pair axis, launches the kernel for CUDA
@@ -23,6 +29,8 @@ from points_matching_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
 _BIG = 1e30
+ROWS_PER_BLOCK = 128    # query rows of a block: kRowsPerBlock in matching_top2.cu
+MIN_SPLIT_COLS = 8      # train columns a split keeps at least
 
 
 def _check_inputs(q: Tensor, t: Tensor, t_mask: Tensor,
@@ -92,10 +100,17 @@ def _launch(q, t, t_mask, t_points, compute_dtype):
     B, N1, _ = q.shape
     N2 = t.shape[1]
     P = 0 if t_points is None else t_points.shape[2]
+    S = _build.train_splits(B, -(-N1 // ROWS_PER_BLOCK), N2,
+                            _build.sm_count(q.device.index), MIN_SPLIT_COLS)
     dist = torch.empty((B, N1, 2), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, N1, 2), dtype=torch.int32, device=q.device)
     pts = None if t_points is None else torch.empty(
         (B, N1, P), dtype=torch.float32, device=q.device)
+    # the splits' partial top-2s (int4 each) and ‖q‖², for the merge kernel
+    part = q2 = None
+    if S > 1:
+        part = torch.empty((B, S, N1, 4), dtype=torch.int32, device=q.device)
+        q2 = torch.empty((B, N1), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pmt_l2_top2(
@@ -103,7 +118,9 @@ def _launch(q, t, t_mask, t_points, compute_dtype):
             None if t_points is None else t_points.data_ptr(),
             dist.data_ptr(), idx.data_ptr(),
             None if pts is None else pts.data_ptr(),
-            B, N1, N2, q.shape[2], P, int(compute_dtype == "bf16"), stream)
+            None if part is None else part.data_ptr(),
+            None if q2 is None else q2.data_ptr(),
+            B, N1, N2, q.shape[2], P, S, int(compute_dtype == "bf16"), stream)
     _build.check(lib, rc, "pmt_l2_top2")
     return dist, idx, pts
 

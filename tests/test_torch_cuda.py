@@ -31,7 +31,10 @@ def _unit(gen, *shape, dev):
 
 
 @pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("b,n1,n2", [(3, 200, 333), (2, 64, 700), (1, 5, 3)])
+# (1, 512, 512): one pair, 33 train splits; (1, 512, 45): 5 splits of 9
+# columns; (1, 70, 7): fewer train rows than one tile or split
+@pytest.mark.parametrize("b,n1,n2", [(3, 200, 333), (2, 64, 700), (1, 5, 3),
+                                     (1, 512, 512), (1, 512, 45), (1, 70, 7)])
 def test_l2_top2_kernel_matches_plain(dev, compute_dtype, b, n1, n2):
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
         fused_l2_top2, fused_l2_top2_points, l2_top2_plain)
@@ -71,6 +74,61 @@ def test_l2_top2_kernel_masked_and_duplicates(dev):
     pd, pi = l2_top2_plain(q, t, one)
     assert torch.equal(ki, pi)
     assert bool((kd[..., 1] > 1e20).all())
+
+
+@pytest.mark.parametrize("n_valid,at", [(0, 0), (1, 0), (1, 500), (2, 505)])
+def test_l2_top2_kernel_fewer_than_two_valid_rows(dev, n_valid, at):
+    """One pair of 512 × 512 runs 33 train splits; a lone valid row in the
+    last split must come out as column 0, and the sentinel (1e30, 0) fill
+    what is missing, as in the plain version."""
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, fused_l2_top2_points, l2_top2_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, t = _unit(gen, 1, 512, 64, dev=dev), _unit(gen, 1, 512, 64, dev=dev)
+    t_mask = torch.zeros(1, 512, dtype=torch.bool, device=dev)
+    t_mask[0, at:at + n_valid] = True
+    kd, ki = fused_l2_top2(q, t, t_mask)
+    pd, pi = l2_top2_plain(q, t, t_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kd, pd, atol=1e-5, rtol=0)
+    assert bool((kd[..., n_valid:] == 1e30).all())
+    pts = torch.rand(1, 512, 2, generator=gen, device=dev)
+    _, ki2, kp = fused_l2_top2_points(q, t, t_mask, pts)
+    assert torch.equal(ki2, ki) and torch.equal(kp, pts[0, ki[0, :, 0].long()][None])
+
+
+def test_top2_kernels_one_pair_equals_its_batched_rows(dev):
+    """The train split depends on the pair count (33 pairs fill the card
+    with S = 1; one pair takes 33 splits), and the result must not: each
+    pair alone gives its batched rows bit for bit."""
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, fused_l2_top2_points)
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, t = _unit(gen, 33, 512, 64, dev=dev), _unit(gen, 33, 512, 64, dev=dev)
+    t_mask = torch.rand(33, 512, generator=gen, device=dev) > 0.05
+    t[:, 400:] = t[:, :112]                             # tied distances across splits
+    pts = torch.rand(33, 512, 2, generator=gen, device=dev)
+    for dtype in ("f32", "bf16"):
+        batched = fused_l2_top2_points(q, t, t_mask, pts, compute_dtype=dtype)
+        for k in (0, 9, 32):
+            one = fused_l2_top2_points(q[k:k + 1], t[k:k + 1], t_mask[k:k + 1],
+                                       pts[k:k + 1], compute_dtype=dtype)
+            assert all(torch.equal(a, b[k:k + 1]) for a, b in zip(one, batched))
+            kd, ki = fused_l2_top2(q[k:k + 1], t[k:k + 1], t_mask[k:k + 1],
+                                   compute_dtype=dtype)
+            assert torch.equal(kd, batched[0][k:k + 1]) and torch.equal(ki, batched[1][k:k + 1])
+    hq, ht = _words(gen, 33, 1024, 8, dev=dev), _words(gen, 33, 1024, 8, dev=dev)
+    ht[:, 900:] = ht[:, :124]
+    hq[:, :300] = ht[:, 600:900]
+    hmask = torch.rand(33, 1024, generator=gen, device=dev) > 0.05
+    batched = fused_hamming_top2(hq, ht, hmask)
+    for k in (0, 32):
+        one = fused_hamming_top2(hq[k:k + 1], ht[k:k + 1], hmask[k:k + 1])
+        assert all(torch.equal(a, b[k:k + 1]) for a, b in zip(one, batched))
 
 
 @pytest.mark.parametrize("b,h,n", [(2, 300, 777), (1, 33, 2500)])
@@ -138,25 +196,21 @@ def _words(gen, *shape, dev):
 
 
 def _check_hamming(q, t, t_mask, kd, ki):
-    """Distances and column 0 equal the plain version's; column 1 is a valid
-    train row other than column 0 at the runner-up distance, or the plain
-    version's sentinel row where there is none."""
-    from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
-        hamming_top2_plain, popcount32)
+    """Distances and both index columns equal the plain version's: column 0
+    the lowest index at the minimum, column 1 the lowest other index at the
+    runner-up, (1e30, 0) where there is none."""
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import hamming_top2_plain
 
     pd, pi = hamming_top2_plain(q, t, t_mask)
     torch.cuda.synchronize()
     assert torch.equal(kd, pd)
-    assert torch.equal(ki[..., 0], pi[..., 0])
-    i2 = ki[..., 1].long()
-    t_at = torch.gather(t, 1, i2[..., None].expand(-1, -1, t.shape[-1]))
-    d_at = popcount32(q ^ t_at).sum(-1).to(torch.float32)
-    has2 = pd[..., 1] < 1e29
-    ok = (d_at == kd[..., 1]) & torch.gather(t_mask, 1, i2) & (i2 != ki[..., 0].long())
-    assert bool(torch.where(has2, ok, ki[..., 1] == pi[..., 1]).all())
+    assert torch.equal(ki, pi)
 
 
-@pytest.mark.parametrize("b,n1,n2", [(3, 200, 1500), (2, 1030, 77), (1, 5, 1)])
+# (1, 1024, 1024): one pair, 33 train splits; (1, 300, 40): splits of 16-20
+# columns
+@pytest.mark.parametrize("b,n1,n2", [(3, 200, 1500), (2, 1030, 77), (1, 5, 1),
+                                     (1, 1024, 1024), (1, 300, 40)])
 def test_hamming_top2_kernel_matches_plain(dev, b, n1, n2):
     from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
 

@@ -6,7 +6,10 @@
 Phases, in order, one line each; any failure exits non-zero before the
 result line:
 
-1. device  — ``nvidia-smi`` name and power limit; CUDA present; TF32 off.
+1. device  — ``nvidia-smi`` name and power limit; CUDA present; TF32 off;
+             the launch floor (a CUDA graph of one-element ``add_``
+             launches, timed as the kernels are), which the one-pair
+             kernel times are read against.
 2. build   — compile every CUDA kernel of the paths from ``csrc/`` (nvcc,
              sm_90a) and report the seconds.
 3. kernels — each kernel against its plain PyTorch version on the card at
@@ -17,8 +20,9 @@ result line:
              (CUDA-graph replays, so that the host's enqueue time does not
              hide a short kernel), plain times (CUDA events), and each
              kernel's bound (the least time the card could take for the
-             same work).  K1, K1b and K4 on one pair must equal the same
-             pair's rows of the batched launch bit for bit.
+             same work).  K1, K1b, K3 and K4 on one pair must equal the
+             same pair's rows of the batched launch bit for bit, and K3 and
+             K2 must equal their plain versions exactly.
 4. slices  — a rendered 993×660 pair through ``two_view_pipeline`` twice:
              the SURF slice with the demo's ``--config ransac`` settings
              (512 keypoints, 512 hypotheses, plus ``match_descriptors_points``)
@@ -278,7 +282,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "points_matching_tpu_torch")):
+        print("chip_smoke: the points_matching_tpu_torch package is not beside this "
+              "script; run it from a checkout of the repository", file=sys.stderr)
+        return 3
+    sys.path.insert(0, here)
     from points_matching_tpu_torch.core.device import pin_fp32, resolve_device
     from points_matching_tpu_torch.ops import kernels as K
     from points_matching_tpu_torch.ops.kernels import _build
@@ -294,6 +303,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{name} x{torch.cuda.device_count()}; TF32 off")
+    one = torch.zeros(1, device=dev)
+    launch_floor = _graph_ms(lambda: one.add_(1))
+    print(f"device: launch floor {launch_floor:.5f} ms (one-element add_, graph replays)")
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -338,7 +350,7 @@ def main() -> int:
         (ms, pms, bound), (ms1, pms1, bound1) = batched, one
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound, library_ms=None,
                     ms_one_pair=ms1, bound_ms_one_pair=bound1["bound_ms"],
-                    plain_ms_one_pair=pms1)
+                    plain_ms_one_pair=pms1, launch_floor_ms=launch_floor)
 
     q = torch.randn(B, N, D, generator=gen, device=dev)
     q = q / q.norm(dim=-1, keepdim=True)
@@ -413,7 +425,7 @@ def main() -> int:
     # one instruction per scalar op (--fmad=false): counted on one sample
     per_sample = _elementwise_ops(minimal_eight_point_plain, sp1[:1, :1].cpu(),
                                   sp2[:1, :1].cpu())
-    times, errs, kFs = {}, [], {}
+    times, errs, kFs, groups = {}, [], {}, {}
     for nb in (B, 1):
         args = (sp1[:nb], sp2[:nb])
         kF = kFs[nb] = minimal_eight_point(*args)
@@ -421,18 +433,25 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((kF - pF).abs().max())
         finite = bool(torch.isfinite(kF).all())
-        print(f"kernel K3 x{nb}: max|F err| {err:.3g} (tol 1e-05) over all "
+        groups[nb] = minimal_eight_point.last_group   # the G this launch ran with
+        print(f"kernel K3 x{nb}: max|F err| {err:.3g} (tol 0) over all "
               f"{kF.shape[0] * kF.shape[1]} samples, finite {finite} "
-              f"({per_sample} fp32 ops per sample)")
+              f"({per_sample} fp32 ops per sample), lanes per sample G = {groups[nb]}")
         # the plain version is the kernel's chain in the kernel's operation
         # order (--fmad=false, IEEE sqrt and division): the two agree to the
-        # last bit on the card, so every sample is held to 1e-5
-        _check(finite and err <= 1e-5, f"K3 x{nb} disagrees with plain")
+        # last bit on the card, for every G
+        _check(finite and err == 0.0 and torch.equal(kF, pF),
+               f"K3 x{nb} disagrees with plain")
         bound = _bound(nb * H * (2 * 8 * 2 + 9) * 4, nb * H * per_sample, FP32_INSTR_PER_S)
         times[nb] = (*measure(f"K3 x{nb}", minimal_eight_point, minimal_eight_point_plain,
                               args, bound, plain_iters=3), bound)
         errs.append(err)
-    report["K3"] = entry(max(errs), times[B], times[1])
+    same = torch.equal(kFs[1], kFs[B][:1])
+    print(f"kernel K3: one pair (G = {groups[1]}) == its rows of the batch "
+          f"(G = {groups[B]}) bit for bit: {same}")
+    _check(same, "K3: one-pair launch differs from the batched one")
+    report["K3"] = dict(entry(max(errs), times[B], times[1]), group=groups[B],
+                        group_one_pair=groups[1])
     kF = kFs[B]
 
     per_cell = _elementwise_ops(ransac_score_plain, kF[:1, :1].cpu(), p1[:1, :1].cpu(),

@@ -7,9 +7,10 @@ Two jobs, both explicit:
   images gave 69 RANSAC inliers instead of 326.  PyTorch already computes
   fp32 matmuls in fp32 by default, but cuDNN runs fp32 convolutions in TF32
   by default, and the detector's Hessian response is a convolution.
-* ``resolve_device(name)`` maps a device name to a ``torch.device``.  A
-  request for ``"cuda"`` on a machine without CUDA raises; it never falls
-  back to the CPU.
+* ``resolve_device(name)`` maps a device name to a ``torch.device``.  Only
+  ``"cpu"`` gives the CPU; every other name is a CUDA device or an error,
+  so a request on a machine without CUDA raises instead of carrying on on
+  the CPU.
 """
 from __future__ import annotations
 
@@ -24,13 +25,14 @@ def pin_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve_device(name: Union[str, torch.device] = "auto") -> torch.device:
-    """``"auto"`` → CUDA when available, else CPU; ``"cpu"``/``"cuda"``/
-    ``"cuda:N"`` → that device.  Raises RuntimeError for a CUDA request on
-    a machine without a usable CUDA device."""
-    if isinstance(name, str) and name == "auto":
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(name)
+def resolve_device(name: Union[str, torch.device] = "cuda") -> torch.device:
+    """``"cpu"``/``"cuda"``/``"cuda:N"`` → that device.  Raises RuntimeError
+    for a CUDA request on a machine without a usable CUDA device, and
+    ValueError for any other name."""
+    try:
+        dev = torch.device(name)
+    except RuntimeError as e:
+        raise ValueError(f"unsupported device {name!r}") from e
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

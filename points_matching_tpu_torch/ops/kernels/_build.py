@@ -44,8 +44,8 @@ _SIGNATURES: Dict[str, list] = {
     "pmt_l2_top2": [_P] * 9 + [_I] * 7 + [_P],
     # F, p1, p2, mask, counts, B, H, N, tau2, stream
     "pmt_ransac_score": [_P] * 5 + [_I] * 3 + [_F, _P],
-    # sp1, sp2, F, count, stream
-    "pmt_eight_point": [_P] * 3 + [_I, _P],
+    # sp1, sp2, F, count, group, stream
+    "pmt_eight_point": [_P] * 3 + [_I, _I, _P],
     # q, t, t_mask, dist, idx, part, B, N1, N2, W, S, stream
     "pmt_hamming_top2": [_P] * 6 + [_I] * 5 + [_P],
 }
@@ -142,3 +142,21 @@ def train_splits(pairs: int, query_tiles: int, n_train: int, num_sms: int,
     if blocks == 0 or blocks >= num_sms:
         return 1
     return max(1, min(-(-num_sms // blocks), n_train // min_cols))
+
+
+# K3 gives each sample 8 lanes while the batch holds at most this many
+# samples an SM (4,224 on an H100's 132 SMs), else 1.  On the H100, G = 8
+# was fastest from 512 to 4,096 samples and G = 1 from 6,144 to 32,768
+# (examples/probe_eightpoint_torch.py --groups, PERF.md); G = 2 and 4 were
+# fastest at no count and are not built.
+EIGHT_POINT_GROUP_SAMPLES_PER_SM = 32
+
+
+def eight_point_group(count: int, num_sms: int) -> int:
+    """Lanes per sample G ∈ {1, 8} of the 8-point kernel (K3): 8 while
+    count ≤ ``EIGHT_POINT_GROUP_SAMPLES_PER_SM`` × ``num_sms``, else 1.
+    The 8 lanes shorten a sample's chain (they share its Hartley roots and
+    AᵀA entries) but add shared-memory traffic and warps; once the batch
+    alone gives the SMs their warps, the extra lanes only queue.  G changes
+    no bit of the result."""
+    return 8 if count <= EIGHT_POINT_GROUP_SAMPLES_PER_SM * num_sms else 1

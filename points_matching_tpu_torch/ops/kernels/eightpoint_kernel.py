@@ -2,10 +2,15 @@
 
 Replaces the TPU kernel ``points_matching_tpu/ops/pallas/eightpoint_kernel.py``
 ``minimal_eight_point``.  CUDA source:
-``points_matching_tpu_torch/csrc/eightpoint.cu`` (one thread per hypothesis,
-the whole chain unrolled in registers: 32 floats in, 9 out).  On the card it
-is bound by fp32 issue and register pressure, not memory (~2.1 kflop per
-hypothesis against 164 bytes).
+``points_matching_tpu_torch/csrc/eightpoint.cu``: a block is one warp of 32 / G
+samples, a group of G lanes per sample sharing its independent work
+(Hartley's 16 point distances, the 45 AᵀA entries) in shared memory, then
+one lane a sample running its serial core (Cholesky, inverse iteration,
+the 3×3 stage, the sign) in registers.  G comes from
+``_build.eight_point_group``; it changes no bit.  On the card the kernel is
+bound by the latency of one sample's chain of IEEE square roots and
+divisions, not memory (~2.5 k fp32 operations per sample against 164
+bytes).
 
 The plain version below is the same chain written over per-scalar [count]
 tensors — one PyTorch elementwise op per scalar operation of the kernel, in
@@ -25,6 +30,15 @@ import torch
 from points_matching_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
+
+GROUPS = (1, 8)           # lanes per sample the CUDA kernel is built for
+
+
+def samples_per_block(group: int) -> int:
+    """Samples a block of the CUDA kernel holds with G = ``group`` lanes
+    each: a block is one warp (kWarp / G in csrc/eightpoint.cu)."""
+    return 32 // group
+
 
 # golden-angle start vector, computed in double and rounded to fp32 (as the
 # reference kernel's trace-time constants are)
@@ -167,12 +181,14 @@ def minimal_eight_point_plain(sp1: Tensor, sp2: Tensor) -> Tensor:
     return out.reshape(*batch, 3, 3)
 
 
-def minimal_eight_point(sp1: Tensor, sp2: Tensor) -> Tensor:
+def minimal_eight_point(sp1: Tensor, sp2: Tensor, *, _group=None) -> Tensor:
     """Batched normalized 8-point solve for minimal RANSAC samples.
 
     Args:
       sp1, sp2: [..., 8, 2] float32 sampled correspondences (typically
         [B, H, 8, 2]: pairs × hypotheses).
+      _group: lanes per sample of the CUDA kernel, forced (tests and
+        probes); None lets ``_build.eight_point_group`` choose.
 
     Returns [..., 3, 3] rank-2, Frobenius/sign-normalized F.
     """
@@ -183,24 +199,31 @@ def minimal_eight_point(sp1: Tensor, sp2: Tensor) -> Tensor:
         raise TypeError("sp1 and sp2 must be float32")
     if sp1.device != sp2.device:
         raise ValueError("sp1 and sp2 on different devices")
+    if _group is not None and _group not in GROUPS:
+        raise ValueError(f"_group must be one of {GROUPS}, got {_group!r}")
     if sp1.device.type == "cpu":
         return minimal_eight_point_plain(sp1, sp2)
     if sp1.device.type != "cuda":
         raise ValueError(f"unsupported device {sp1.device}")
     if not (sp1.is_contiguous() and sp2.is_contiguous()):
         raise ValueError("the CUDA kernel needs contiguous inputs")
-    if sp1.data_ptr() % 8 or sp2.data_ptr() % 8:
-        raise ValueError("the CUDA kernel needs 8-byte aligned inputs")
-    lib = _build.library()
+    if sp1.data_ptr() % 16 or sp2.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs 16-byte aligned inputs")
     count = sp1.numel() // 16
     F = torch.empty((*sp1.shape[:-2], 3, 3), dtype=torch.float32,
                     device=sp1.device)
+    if count == 0:
+        return F
+    group = _group or _build.eight_point_group(count, _build.sm_count(sp1.device.index))
+    lib = _build.library()
     with torch.cuda.device(sp1.device):
         rc = lib.pmt_eight_point(sp1.data_ptr(), sp2.data_ptr(), F.data_ptr(),
-                                 count, torch.cuda.current_stream().cuda_stream)
+                                 count, group, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_eight_point")
     minimal_eight_point.launches += 1
+    minimal_eight_point.last_group = group
     return F
 
 
 minimal_eight_point.launches = 0
+minimal_eight_point.last_group = None    # G of the last kernel launch

@@ -122,13 +122,14 @@ def run_two_view_demo(
     out_dir: Optional[str] = None,
     seed: int = 0,
     verbose: bool = True,
-    device: str = "auto",
+    device: str = "cuda",
 ) -> TwoViewResult:
     """Host entry point reproducing the reference demo's observable behavior:
     prints max/min match distance, the good-match and inlier counts and the
     mean epipolar residual, and writes the three windows it showed —
-    keypoints, matches, epilines — as PNGs (needs PIL).  Returns the result
-    on the CPU."""
+    keypoints, matches, epilines — as PNGs (needs PIL).  Runs on the CUDA
+    device unless ``device="cpu"`` is asked, and raises where CUDA is
+    missing.  Returns the result on the CPU."""
     import os
 
     import numpy as np

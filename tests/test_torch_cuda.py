@@ -159,11 +159,76 @@ def test_eight_point_kernel_matches_plain(dev):
     pF = minimal_eight_point_plain(sp1, sp2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(kF).all())
-    # same operation order, --fmad=false, IEEE sqrt/div: the same bits; every
-    # sample held to 1e-5
-    assert float((kF - pF).abs().max()) <= 1e-5
+    # same operation order, --fmad=false, IEEE sqrt/div: the same bits
+    assert torch.equal(kF, pF)
     spd = torch.full((1, 8, 2), 5.0, device=dev)
     assert bool(torch.isfinite(minimal_eight_point(spd, spd)).all())
+
+
+def _eight_point_samples(gen, n, dev):
+    sp1 = torch.rand(n, 8, 2, generator=gen, device=dev) * torch.tensor([993.0, 660.0],
+                                                                        device=dev)
+    sp2 = sp1 + torch.randn(n, 8, 2, generator=gen, device=dev) * 5
+    return sp1, sp2
+
+
+# 1, 7, 33, 513: ragged groups and blocks (a block is one warp of 32 / G
+# samples); 64 × 512: the batched shape
+@pytest.mark.parametrize("count", [1, 7, 33, 513, 64 * 512])
+@pytest.mark.parametrize("group", [1, 8])
+def test_eight_point_kernel_each_group_equals_plain(dev, group, count):
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
+        minimal_eight_point, minimal_eight_point_plain)
+
+    sp1, sp2 = _eight_point_samples(torch.Generator(device=dev).manual_seed(count), count,
+                                    dev)
+    before = minimal_eight_point.launches
+    kF = minimal_eight_point(sp1, sp2, _group=group)
+    assert minimal_eight_point.launches == before + 1
+    pF = minimal_eight_point_plain(sp1, sp2)
+    torch.cuda.synchronize()
+    assert kF.shape == (count, 3, 3) and bool(torch.isfinite(kF).all())
+    assert torch.equal(kF, pF), float((kF - pF).abs().max())
+
+
+def test_eight_point_one_pair_equals_its_batched_rows(dev):
+    """The rule picks G = 8 for one pair (512 samples) and G = 1 for 64
+    pairs; the bits must not move, and no forced G moves them either."""
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import minimal_eight_point
+
+    sp1, sp2 = _eight_point_samples(torch.Generator(device=dev).manual_seed(5), 64 * 512, dev)
+    sp1, sp2 = sp1.view(64, 512, 8, 2), sp2.view(64, 512, 8, 2)
+    batched = minimal_eight_point(sp1, sp2)
+    assert minimal_eight_point.last_group == 1
+    for k in (0, 17, 63):
+        one = minimal_eight_point(sp1[k:k + 1], sp2[k:k + 1])
+        assert minimal_eight_point.last_group == 8
+        assert torch.equal(one, batched[k:k + 1])
+    for group in (1, 8):
+        assert torch.equal(minimal_eight_point(sp1, sp2, _group=group), batched)
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_eight_point_kernel_degenerate_samples_stay_finite(dev, group):
+    """All points equal, all at 0, collinear, four points each twice, a
+    1e-6 spread, huge coordinates: finite, and still the plain version's
+    bits."""
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
+        minimal_eight_point, minimal_eight_point_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    r = torch.rand(8, 2, generator=gen, device=dev) * 500
+    t = torch.linspace(0, 1, 8, device=dev)[:, None]
+    line = torch.cat([t * 300 + 10, t * 200 + 40], 1)
+    cases = [torch.full((8, 2), 5.0, device=dev), torch.zeros(8, 2, device=dev), line,
+             r[:4].repeat(2, 1), 320 + 1e-6 * r, r * 1e6]
+    sp1 = torch.stack(cases)
+    sp2 = torch.stack([c.flip(0) for c in cases[:3]] + [c + 3 for c in cases[3:]])
+    kF = minimal_eight_point(sp1, sp2, _group=group)
+    pF = minimal_eight_point_plain(sp1, sp2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kF).all())
+    assert torch.equal(kF, pF)
 
 
 def test_wrappers_raise_on_bad_inputs(dev):
@@ -188,6 +253,14 @@ def test_wrappers_raise_on_bad_inputs(dev):
                                 torch.ones(1, 5, dtype=torch.bool, device=dev), 1.0)
     with pytest.raises(ValueError):
         minimal_eight_point(torch.randn(4, 7, 2, device=dev), torch.randn(4, 7, 2, device=dev))
+    flat = torch.randn(4 * 16 + 2, device=dev)
+    odd = flat[2:].view(4, 8, 2)                      # 8-byte aligned, not 16
+    with pytest.raises(ValueError):
+        minimal_eight_point(odd, odd)
+    with pytest.raises(ValueError):
+        minimal_eight_point(odd.clone(), odd.clone(), _group=3)
+    empty = minimal_eight_point(torch.zeros(0, 8, 2, device=dev), torch.zeros(0, 8, 2, device=dev))
+    assert empty.shape == (0, 3, 3)
 
 
 def _words(gen, *shape, dev):

@@ -22,7 +22,8 @@ from points_matching_tpu.pipelines.two_view import two_view_pipeline as j_pipeli
 from points_matching_tpu_torch.core import config as tc  # noqa: E402
 from points_matching_tpu_torch.core.convert import config_from_dict  # noqa: E402
 from points_matching_tpu_torch.core.device import resolve_device  # noqa: E402
-from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline  # noqa: E402
+from points_matching_tpu_torch.pipelines.two_view import (  # noqa: E402
+    run_two_view_demo, two_view_pipeline)
 
 H_RANSAC = 256
 
@@ -147,5 +148,11 @@ def test_cuda_request_raises_without_cuda():
         pytest.skip("this machine has CUDA: the no-fallback path is not reachable")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
-    assert resolve_device("auto").type == "cpu"
+    # nothing but "cpu" maps to the CPU: the defaults ask for CUDA and raise
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        run_two_view_demo("no-such-1.png", "no-such-2.png", verbose=False)
+    with pytest.raises(ValueError):
+        resolve_device("auto")
     assert resolve_device("cpu").type == "cpu"

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two-view main paths once on one CUDA GPU.
+"""Drive the PyTorch port's main paths (two-view SURF and ORB, incremental
+SfM) once on one CUDA GPU.
 
     python3 chip_smoke.py
 
-Phases, in order, one line each; any failure exits non-zero before the
-result line:
+Phases, in order, one line each and their seconds at the end; any failure
+exits non-zero before the result line:
 
 1. device  — ``nvidia-smi`` name and power limit; CUDA present; TF32 off;
              the launch floor (a CUDA graph of one-element ``add_``
@@ -33,7 +34,31 @@ result line:
              launched.  The output must be sane and agree with the same
              pipeline run on the CPU (plain versions) with the same RANSAC
              samples.
-5. result  — one JSON line of per-kernel numbers, then the last line
+   k1sfm   — K1 at the shapes the SfM slices launch it at: a frame against
+             the landmark bank (1 × 256 × 8192 × 64) and the bank's
+             cross-check (1 × 8192 × 256 × 64), 90 % of the train rows
+             masked, and the 32-d sequences (64 × 256 × 256 × 32), each held
+             to its plain version as the 512 × 512 cases are.
+5. sfm     — BASELINE config 3 without loop closure: 100 rendered 512×384
+             frames → Hessian/SURF on the card → ``run_incremental_sfm``
+             (128 / 8,192 / 65,536, ``ba_every=4``, ``chunk_size=16``), held
+             to tests/test_sequence_100.py's bounds (≥ 95 frames registered,
+             > 500 landmarks, ATE < 10 % of the extent); frames/s of three
+             runs (one ``synchronize`` at the end of each) beside the host's
+             eager launch time (the loop is host-bound), launches per kernel
+             and peak memory of the first; host syncs a frame (a run in
+             CUDA's sync debug mode); ms per ``register_frame`` and per local
+             BA (the loop's steps driven one by one, each synchronized); the
+             first 16 frames through the CPU too, held to the same frames
+             registered and trajectories within 2 % of the extent.
+   sfm32   — the JAX bench's synthetic tracked sequence (64 frames × 256 ×
+             32-d; K1 at D = 32): every frame registered, ATE under 10 % of
+             the extent, frames/s and ms per frame as above.
+   ba      — ``bundle_adjust_sparse`` at the JAX bench's BA shape (64 cameras
+             × 16,384 landmarks × 131,072 observations): the cost must fall;
+             ms per LM iteration and peak memory.
+6. result  — one JSON line of the SfM numbers, one of per-kernel numbers
+             (launches by path: surf, orb, sfm), then the last line
              ``{"ok": true, "device": {...}}``.
 
 Bounds use the card's published peaks (NVIDIA H100 SXM data sheet): 3.35
@@ -275,6 +300,331 @@ def _time_pipeline(tag: str, im1, im2, cfg, dev) -> float:
     return med
 
 
+def _k1_case(tag: str, nb: int, n1: int, n2: int, d: int, masked: float, gen, dev,
+             measure) -> dict:
+    """K1 f32 at one shape against its plain version: the same checks as the
+    512 × 512 cases (max |Δdist| ≤ 1e-5, no 1-NN index mismatch off
+    near-ties), times, and the bound from the train rows that are valid (a
+    masked row needs no distance)."""
+    import torch
+
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, l2_top2_plain)
+
+    q = torch.randn(nb, n1, d, generator=gen, device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
+    t = torch.randn(nb, n2, d, generator=gen, device=dev)
+    t = t / t.norm(dim=-1, keepdim=True)
+    t_mask = torch.rand(nb, n2, generator=gen, device=dev) >= masked
+    kd, ki = fused_l2_top2(q, t, t_mask)
+    pd, pi = l2_top2_plain(q, t, t_mask)
+    torch.cuda.synchronize()
+    err = float((kd - pd).abs().max())
+    tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+    idx_bad = int(((ki[..., 0] != pi[..., 0]) & ~tie).sum())
+    valid = int(t_mask.sum())
+    print(f"kernel K1 f32 {tag} {nb}x{n1}x{n2}x{d} ({valid} valid train rows): "
+          f"max|dist err| {err:.3g} (tol 1e-05), 1-NN index mismatches off near-ties "
+          f"{idx_bad}")
+    _check(err <= 1e-5 and idx_bad == 0, f"K1 {tag} disagrees with plain")
+    # q and the valid t rows read once, the mask, dist and idx written once;
+    # one FMA per (query, valid train, dim) cell
+    bound = _bound(4 * (nb * n1 + valid) * d + nb * n2 + 16 * nb * n1,
+                   2 * n1 * valid * d, FP32_FLOPS_PER_S)
+    ms, pms = measure(f"K1 f32 {tag}", fused_l2_top2, l2_top2_plain, (q, t, t_mask), bound)
+    return dict(shape=[nb, n1, n2, d], masked_train_rows=nb * n2 - valid, max_abs_err=err,
+                ms=ms, plain_ms=pms, **bound, library_ms=None)
+
+
+def _rendered_frames(dev, num_frames: int):
+    """BASELINE config 3's sequence (tests/test_sequence_100.py): frames at
+    512 × 384 from ``data/render.render_sequence`` (900 landmarks, an
+    out-and-back trajectory of step 0.25), through the Hessian (threshold
+    100, 256 keypoints) + SURF frontend on the card."""
+    import torch
+
+    from points_matching_tpu_torch.core.config import DescriptorConfig, DetectorConfig
+    from points_matching_tpu_torch.core.types import CameraIntrinsics
+    from points_matching_tpu_torch.data.render import render_sequence
+    from points_matching_tpu_torch.ops.descriptors import extract_descriptors
+    from points_matching_tpu_torch.ops.detect import detect_keypoints
+
+    step = 0.25
+    imgs, gt_pos, _, (fx, fy, cx, cy) = render_sequence(
+        num_frames=num_frames, num_landmarks=900, image_size=(512, 384), seed=0,
+        loop=True, step=step, x_span=(-6.0, 6.0 + step * (num_frames // 2 - 1)))
+    dcfg = DetectorConfig(kind="hessian", threshold=100.0, max_keypoints=256)
+    xcfg = DescriptorConfig(kind="surf")
+    frames = []
+    for im in imgs:
+        g = torch.from_numpy(np.ascontiguousarray(im)).to(dev)
+        kp = detect_keypoints(g, dcfg)
+        d = extract_descriptors(g, kp, xcfg)
+        frames.append((kp.xy.contiguous(), d.data.contiguous(), kp.mask & d.mask))
+    K = CameraIntrinsics(*(torch.tensor(v, dtype=torch.float32, device=dev)
+                           for v in (fx, fy, cx, cy)))
+    return frames, K, torch.from_numpy(gt_pos.astype(np.float32)), step * (num_frames // 2 - 1)
+
+
+def _sfm_config(max_landmarks: int, max_observations: int):
+    from points_matching_tpu_torch.core.config import (
+        MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig)
+
+    return SfMConfig(
+        two_view=TwoViewConfig(matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.8),
+                               ransac=RansacConfig(num_hypotheses=256, inlier_threshold=2.0)),
+        max_cameras=128, max_landmarks=max_landmarks, max_observations=max_observations,
+        pnp_min_inliers=12)
+
+
+def _ate(res, gt, n: int) -> float:
+    from points_matching_tpu_torch.utils.evaluation import absolute_trajectory_error
+
+    mask = res.state.cam_mask[:n].cpu()
+    return float(absolute_trajectory_error(res.trajectory[:n].cpu(), gt[:n], mask).rmse)
+
+
+def _dispatch_us(dev, n: int = 2000) -> float:
+    """The host's time per eager launch (µs): ``n`` one-element ``add_``
+    calls enqueued back to back, one ``synchronize`` at the end.  The SfM
+    loop is host-bound, so its frames/s follow this number."""
+    import torch
+
+    one = torch.zeros(1, device=dev)
+    one.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _count_syncs(fn):
+    """(fn(), the host-device synchronizations it made) — each one the
+    CUDA sync debug mode reports as a warning (``.item()``, ``bool()``,
+    copies to the host, ...)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _slice_sfm(dev, K_mod) -> dict:
+    """BASELINE config 3 without loop closure: 100 rendered frames → the
+    frontend → ``run_incremental_sfm`` (128 cameras / 8,192 landmarks /
+    65,536 observations, ``ba_every=4``, ``chunk_size=16``), held to
+    tests/test_sequence_100.py's bounds; then the first 16 frames through
+    the port on the CPU, against the same 16 on the card."""
+    import torch
+
+    from points_matching_tpu_torch.pipelines.sfm import run_incremental_sfm
+    from points_matching_tpu_torch.utils.evaluation import umeyama_alignment
+
+    n = 100
+    t0 = time.perf_counter()
+    frames, K, gt, extent = _rendered_frames(dev, n)
+    torch.cuda.synchronize()
+    t_front = time.perf_counter() - t0
+    n_feat = [int(f[2].sum()) for f in frames]
+    print(f"slice sfm: {n} frames 512x384 rendered + Hessian/SURF on the card in "
+          f"{t_front:.2f} s; features per frame min {min(n_feat)} / median "
+          f"{int(np.median(n_feat))}")
+    _check(min(n_feat) >= 96, "sfm: a frame with fewer than 96 features")
+    cfg = _sfm_config(8192, 65536)
+
+    def run(fr):
+        return run_incremental_sfm(fr, K.to(fr[0][0].device), cfg, seed=0, ba_every=4,
+                                   chunk_size=16)
+
+    run(frames[:6])                              # warm-up (allocator, library)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # three timed runs (host clock, one synchronize at the end of each), the
+    # host's eager launch time just before each; the first run's launches
+    # and peak memory are the path's
+    fps, disp = [], []
+    for rep in range(3):
+        disp.append(_dispatch_us(dev))
+        K_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(frames)
+        torch.cuda.synchronize()
+        fps.append(n / (time.perf_counter() - t0))
+        if rep == 0:
+            res, launches = out, K_mod.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+    n_reg = sum(res.registered)
+    n_lms = int(res.state.num_lms)
+    ate = _ate(res, gt, n)
+    print(f"slice sfm: registered {n_reg}/{n}, landmarks {n_lms}, observations "
+          f"{int(res.state.num_obs)}, ATE {ate:.4f} (bound {0.1 * extent:.4f} = 10 % of "
+          f"the extent {extent}); frames/s of three runs "
+          + ", ".join(f"{f:.2f}" for f in fps) + " (host clock, one synchronize at the "
+          "end of each); host eager launch before each "
+          + ", ".join(f"{d:.2f}" for d in disp) + " us")
+    _check(n_reg >= n - 5, f"sfm: registered {n_reg}/{n}")
+    _check(n_lms > 500, f"sfm: {n_lms} landmarks")
+    _check(ate < 0.1 * extent, f"sfm: ATE {ate} over the bound")
+    per_reg = {k: v / n_reg for k, v in launches.items()}
+    print(f"slice sfm: launches on the path {launches}; per registered frame "
+          + json.dumps({k: round(v, 3) for k, v in per_reg.items()}))
+    for k in ("fused_l2_top2", "minimal_eight_point", "ransac_score_hypotheses"):
+        _check(launches[k] > 0, f"sfm: {k} never launched")
+    # K1: three launches a frame after the bootstrap's one
+    _check(launches["fused_l2_top2"] >= 1 + 3 * (n - 2), "sfm: K1 not launched every frame")
+
+    res_s, syncs = _count_syncs(lambda: run(frames))
+    print(f"slice sfm: host syncs {syncs} in the run ({syncs / n:.2f} a frame; registered "
+          f"{sum(res_s.registered)}/{n}); peak device memory {peak / 2**20:.1f} MiB")
+    disp.append(_dispatch_us(dev))
+    frame_ms, ba_ms = _step_times(frames, K, cfg)
+    print(f"slice sfm: register_frame {float(np.median(frame_ms)):.3f} ms median of "
+          f"{len(frame_ms)} registered frames after the bootstrap; local BA {len(ba_ms)} "
+          f"calls, median {float(np.median(ba_ms)):.3f} ms, total {sum(ba_ms):.1f} ms "
+          f"(each step synchronized; host eager launch before {disp[-1]:.2f} us)")
+
+    # GPU against CPU on the first 16 frames (the card's features, on the CPU)
+    m = 16
+    gpu = run(frames[:m])
+    cpu = run([tuple(x.cpu() for x in f) for f in frames[:m]])
+    ext_m = 0.25 * (m - 1)
+    tg, tc = gpu.trajectory[:m].cpu(), cpu.trajectory[:m]
+    s, R, t = umeyama_alignment(tg, tc)
+    diff = float(((s * tg @ R.T + t - tc).norm(dim=-1) ** 2).mean().sqrt())
+    ate_g, ate_c = _ate(gpu, gt, m), _ate(cpu, gt, m)
+    print(f"slice sfm: GPU vs CPU on {m} frames: registered {gpu.registered} vs "
+          f"{cpu.registered}; ATE {ate_g:.4f} vs {ate_c:.4f} (bound {0.1 * ext_m:.4f}); "
+          f"aligned trajectory difference {diff:.4f} (bound {0.02 * ext_m:.4f} = 2 % of "
+          f"{ext_m})")
+    _check(gpu.registered == cpu.registered, "sfm: GPU and CPU registered other frames")
+    _check(ate_g < 0.1 * ext_m and ate_c < 0.1 * ext_m, "sfm: 16-frame ATE over the bound")
+    _check(diff < 0.02 * ext_m, "sfm: GPU and CPU trajectories differ")
+    return dict(launches=launches, registered=n_reg, landmarks=n_lms, ate=ate,
+                frame_ms=float(np.median(frame_ms)), frames_per_s=float(np.median(fps)),
+                frames_per_s_runs=fps, dispatch_us=disp, ba_ms=ba_ms,
+                syncs_per_frame=syncs / n, peak_bytes=peak, gpu_vs_cpu_diff=diff)
+
+
+def _step_times(frames, K, cfg):
+    """Per-step times of the SfM loop on the host clock, each step
+    synchronized: ``register_frame`` for each registered frame after the
+    bootstrap, and each local BA (``ba_every=4``), in the order of
+    ``run_incremental_sfm`` (the slices' frames/s come from its run, which
+    synchronizes only where it reads the device).  Returns (frame ms, local
+    BA ms)."""
+    import torch
+
+    from points_matching_tpu_torch.pipelines.sfm import (
+        bootstrap_two_view, init_sfm_state, local_bundle_adjust, register_frame)
+
+    dev = frames[0][0].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_sfm_state(cfg, *frames[0][1].shape, device=dev)
+    state, _ = bootstrap_two_view(state, *frames[0], *frames[1], K, gen, cfg)
+    frame_ms, ba_ms = [], []
+    for i, f in enumerate(frames[2:], 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, st = register_frame(state, *f, K, gen, cfg)
+        torch.cuda.synchronize()
+        if not bool(st.registered):
+            continue
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if i % 4 == 0:
+            t0 = time.perf_counter()
+            state, _ = local_bundle_adjust(state, K, cfg, cfg.local_ba_window)
+            torch.cuda.synchronize()
+            ba_ms.append((time.perf_counter() - t0) * 1e3)
+    return frame_ms, ba_ms
+
+
+def _slice_sfm32(dev, K_mod) -> dict:
+    """The JAX bench's ``sfm`` section on the card: 64 frames × 256
+    features × 32-d (kernel K1 at D = 32), 128 / 4,096 / 32,768."""
+    import torch
+
+    from points_matching_tpu_torch.data.synthetic import make_tracked_sequence
+    from points_matching_tpu_torch.pipelines.sfm import run_incremental_sfm
+
+    n = 64
+    frames, K, gt = make_tracked_sequence(n, device=dev, num_landmarks=600,
+                                          x_range=(-6.0, 10.0), yaw_step=0.01, t_step=0.12)
+    extent = 0.12 * (n - 1)
+    cfg = _sfm_config(4096, 32768)
+    run_incremental_sfm(frames[:6], K, cfg, seed=0)               # warm-up
+    torch.cuda.synchronize()
+    disp = _dispatch_us(dev)
+    K_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_incremental_sfm(frames, K, cfg, seed=0, ba_every=4, chunk_size=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K_mod.launch_counts()
+    n_reg = sum(res.registered)
+    ate = _ate(res, gt, n)
+    frame_ms, _ = _step_times(frames, K, cfg)
+    print(f"slice sfm32: registered {n_reg}/{n}, landmarks {int(res.state.num_lms)}, "
+          f"ATE {ate:.4f} (bound {0.1 * extent:.4f} = 10 % of the extent {extent:.2f}); "
+          f"{n / wall:.2f} frames/s, register_frame {float(np.median(frame_ms)):.3f} ms "
+          f"median (synchronized); host eager launch {disp:.2f} us; launches {launches}")
+    _check(n_reg == n, f"sfm32: registered {n_reg}/{n}")
+    _check(ate < 0.1 * extent, f"sfm32: ATE {ate} over the bound")
+    _check(launches["fused_l2_top2"] >= 3 * (n - 2), "sfm32: K1 (D = 32) not launched")
+    return dict(registered=n_reg, ate=ate, frame_ms=float(np.median(frame_ms)),
+                frames_per_s=n / wall, dispatch_us=disp, launches=launches)
+
+
+def _ba_sparse(dev) -> dict:
+    """``bundle_adjust_sparse`` at the JAX bench's BA shape (bench.py:
+    ``bench_ba_sparse``): 64 cameras × 16,384 landmarks × 131,072
+    observations from ``make_sparse_ba_problem(seed=1)``, 10 LM iterations
+    (rtol 0) of 25 PCG steps."""
+    import torch
+
+    from points_matching_tpu_torch.ba.sparse import (
+        bundle_adjust_sparse, make_sparse_ba_state)
+    from points_matching_tpu_torch.core.config import BAConfig
+    from points_matching_tpu_torch.core.types import CameraIntrinsics
+    from points_matching_tpu_torch.data.synthetic import make_sparse_ba_problem
+
+    prob = make_sparse_ba_problem(seed=1, num_cameras=64, num_landmarks=16384,
+                                  obs_per_landmark=8, device=dev)
+    K = CameraIntrinsics.from_matrix(prob["K"])
+    state = make_sparse_ba_state(prob["poses"], prob["X"], prob["cam_idx"], prob["lm_idx"],
+                                 prob["uv"], prob["obs_mask"])
+    cfg = BAConfig(max_iterations=10, rtol=0.0, pcg_iterations=25)
+    bundle_adjust_sparse(state, K, BAConfig(max_iterations=1, rtol=0.0,
+                                            pcg_iterations=25))          # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, st = bundle_adjust_sparse(state, K, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    it = int(st.iterations)
+    c0, c1 = float(st.initial_cost), float(st.final_cost)
+    n_obs = int(state.obs_mask.sum())
+    print(f"ba sparse: 64 cams x 16384 lm x {state.num_observations} obs ({n_obs} valid): "
+          f"cost {c0:.6g} -> {c1:.6g} in {it} LM iterations, {ms / it:.3f} ms/iteration "
+          f"(host clock, synchronized); peak device memory {peak / 2**20:.1f} MiB "
+          f"({(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
+          f"before the call)")
+    _check(c1 < c0 and math.isfinite(c1), "ba sparse: cost did not go down")
+    return dict(initial_cost=c0, final_cost=c1, iterations=it, ms_per_iteration=ms / it,
+                peak_bytes=peak, base_bytes=base)
+
+
 def main() -> int:
     import torch
 
@@ -324,6 +674,16 @@ def main() -> int:
     from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
         ransac_score_hypotheses, ransac_score_plain)
 
+    def measure(tag, kernel, plain, args, bound, plain_iters=20):
+        ms = _graph_ms(lambda: kernel(*args))
+        pms = _cuda_ms(lambda: plain(*args), iters=plain_iters,
+                       warmup=1 if plain_iters < 20 else 3)
+        print(f"kernel {tag}: {ms:.4f} ms vs plain {pms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        return ms, pms
+
+    phase_s, report = {}, {}
+    t_phase = time.perf_counter()
     # -- 3. kernels against their plain versions -----------------------------
     # Each kernel runs at two shapes: the batched one (64 pairs, the bench
     # head's) and one pair, which is what the slices launch.  Kernel times
@@ -334,15 +694,6 @@ def main() -> int:
     # every library_ms is null.
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, D, H = 64, 512, 64, 512
-    report = {}
-
-    def measure(tag, kernel, plain, args, bound, plain_iters=20):
-        ms = _graph_ms(lambda: kernel(*args))
-        pms = _cuda_ms(lambda: plain(*args), iters=plain_iters,
-                       warmup=1 if plain_iters < 20 else 3)
-        print(f"kernel {tag}: {ms:.4f} ms vs plain {pms:.4f} ms, "
-              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        return ms, pms
 
     def entry(err, batched, one):
         """A kernel's report: errors over both shapes, the batched times and
@@ -503,7 +854,22 @@ def main() -> int:
     print(f"kernel K4: one pair == its rows of the batch bit for bit: {same}")
     _check(same, "K4: one-pair launch differs from the batched one")
     report["K4"] = entry(max(errs), times[HB], times[1])
+    phase_s["kernels"] = time.perf_counter() - t_phase
 
+    # K1 at the shapes the SfM slices launch it at: a frame against the
+    # landmark bank and the bank's cross-check (most bank rows are
+    # unused early in a run: 90 % of the train rows masked), and the
+    # 32-d synthetic sequences
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    report["K1_sfm"] = [
+        _k1_case("frame->bank", 1, 256, 8192, 64, 0.9, gen, dev, measure),
+        _k1_case("bank->frame", 1, 8192, 256, 64, 0.9, gen, dev, measure),
+        _k1_case("D=32", 64, 256, 256, 32, 0.05, gen, dev, measure),
+    ]
+    phase_s["k1sfm"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
     # -- 4. the slices: the port's main paths -----------------------------------
     from points_matching_tpu_torch.core.config import named_config
     from points_matching_tpu_torch.data.render import render_sequence
@@ -568,14 +934,27 @@ def main() -> int:
     _gpu_vs_cpu("orb", im1, im2, ocfg, res, dev)
     _time_pipeline("orb", im1, im2, ocfg, dev)
 
-    # -- 5. result -----------------------------------------------------------
+    phase_s["slices"] = time.perf_counter() - t_phase
+
+    # -- 5. SfM: BASELINE config 3 (without loop closure), the JAX bench's
+    # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
+    for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
+                      ("sfm32", lambda: _slice_sfm32(dev, K)), ("ba", lambda: _ba_sparse(dev))):
+        t_phase = time.perf_counter()
+        report[phase] = fn()
+        phase_s[phase] = time.perf_counter() - t_phase
+    print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+
+    # -- 6. result -----------------------------------------------------------
     src = "points_matching_tpu_torch/csrc/"
     pallas = "points_matching_tpu/ops/pallas/"
+    report["K1_f32"]["sfm_shapes"] = report["K1_sfm"]
+    sfm_launches = report["sfm"].pop("launches")
 
     def launches(name):
-        return dict(launches=surf_launches[name] + orb_launches[name],
-                    launches_by_path=dict(surf=surf_launches[name],
-                                          orb=orb_launches[name]))
+        by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
+                       sfm=sfm_launches[name])
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
         dict(name="fused_l2_top2", route="cuda", source=src + "matching_top2.cu",
@@ -598,6 +977,7 @@ def main() -> int:
     ]
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")
+    print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -2,10 +2,13 @@
 
 The same two-view pipeline as the JAX package (Hessian detect → SURF
 describe → L2 match → 8-point / batched RANSAC F → residual audit →
-epilines), written in PyTorch for one NVIDIA Hopper GPU.  Every TPU kernel on
-that path is a hand-written CUDA kernel under ``csrc/`` (built with ``nvcc``
-for ``sm_90a`` at first use, see ``ops/kernels/_build.py``), with a plain
-PyTorch version beside it that CPU tensors take.
+epilines; or the ORB configuration) and its incremental SfM (bootstrap from
+E, RANSAC PnP registration, triangulation, windowed sparse bundle
+adjustment: image → trajectory), written in PyTorch for one NVIDIA Hopper
+GPU.  Every TPU kernel on those paths is a hand-written CUDA kernel under
+``csrc/`` (built with ``nvcc`` for ``sm_90a`` at first use, see
+``ops/kernels/_build.py``), with a plain PyTorch version beside it that CPU
+tensors take.
 
 This package imports torch, numpy and the standard library only — never
 JAX or ``points_matching_tpu`` (the JAX package is the reference the parity
@@ -14,6 +17,8 @@ tests hold it against).
 
 __version__ = "0.1.0"
 
+from points_matching_tpu_torch.ba.lm import bundle_adjust  # noqa: F401
+from points_matching_tpu_torch.ba.sparse import bundle_adjust_sparse  # noqa: F401
 from points_matching_tpu_torch.core import config, types  # noqa: F401
 from points_matching_tpu_torch.core.device import pin_fp32, resolve_device  # noqa: F401
 from points_matching_tpu_torch.geometry.fundamental import (  # noqa: F401
@@ -38,3 +43,4 @@ from points_matching_tpu_torch.pipelines.two_view import (  # noqa: F401
     run_two_view_demo,
     two_view_pipeline,
 )
+from points_matching_tpu_torch.pipelines.sfm import run_incremental_sfm  # noqa: F401

@@ -1,0 +1,170 @@
+"""Levenberg-Marquardt bundle adjustment on the dense [C, L] grid — port of
+``points_matching_tpu/ba/lm.py``.
+
+The reference runs the loop as one ``lax.while_loop``; here it is a host
+loop with the same stopping rule, accept/reject and damping updates.  The
+updates themselves are masked ``torch.where`` selects on the device; the
+host reads one boolean per iteration (the stopping test).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+
+from points_matching_tpu_torch.ba.residuals import (
+    huber_weights,
+    reprojection_residuals,
+    residuals_and_jacobians,
+)
+from points_matching_tpu_torch.ba.schur import (
+    build_normal_equations,
+    solve_schur,
+    solve_schur_pcg,
+)
+from points_matching_tpu_torch.core.config import BAConfig
+from points_matching_tpu_torch.core.device import pin_fp32
+from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
+from points_matching_tpu_torch.geometry.se3 import se3_exp
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class BAState:
+    """Bundle-adjustment problem state on the dense [C, L] grid."""
+
+    poses: Pose               # [C] world→camera
+    X: Tensor                 # [L, 3]
+    uv: Tensor                # [C, L, 2] measurements
+    mask: Tensor              # [C, L] observation validity
+    cam_fixed: Tensor         # [C] bool — gauge-fixed cameras (no update)
+
+    @property
+    def num_cameras(self) -> int:
+        return self.poses.t.shape[0]
+
+    @property
+    def num_landmarks(self) -> int:
+        return self.X.shape[0]
+
+
+def make_ba_state(poses: Pose, X: Tensor, uv: Tensor, mask: Tensor,
+                  num_fixed_cameras: int = 1) -> BAState:
+    """Fix the first ``num_fixed_cameras`` poses (the gauge)."""
+    C = poses.t.shape[0]
+    return BAState(poses=poses, X=X, uv=uv, mask=mask.bool(),
+                   cam_fixed=torch.arange(C, device=X.device) < num_fixed_cameras)
+
+
+def robust_cost(r: Tensor, mask: Tensor, huber_delta: float) -> Tensor:
+    """Σ over valid rows of ½‖r‖² (or the Huber loss of ‖r‖)."""
+    if huber_delta > 0:
+        n = torch.linalg.vector_norm(r, dim=-1)
+        per = torch.where(n <= huber_delta, 0.5 * n ** 2,
+                          huber_delta * (n - 0.5 * huber_delta))
+    else:
+        per = 0.5 * (r * r).sum(-1)
+    return torch.where(mask, per, torch.zeros_like(per)).sum()
+
+
+def ba_cost(state: BAState, K: CameraIntrinsics, huber_delta: float = 0.0) -> Tensor:
+    """Total (optionally Huber-robustified) reprojection cost."""
+    r = reprojection_residuals(state.poses, state.X, state.uv, state.mask, K)
+    return robust_cost(r, state.mask, huber_delta)
+
+
+def retract(poses: Pose, cam_fixed: Tensor, dc: Tensor) -> Pose:
+    """Left-multiplicative retraction of the pose deltas; fixed cameras
+    get a zero delta, which leaves them exactly unchanged."""
+    dc = torch.where(cam_fixed[:, None], torch.zeros_like(dc), dc)
+    Rd, td = se3_exp(dc)
+    return Pose(R=Rd @ poses.R, t=(Rd @ poses.t[..., None])[..., 0] + td)
+
+
+class LMStats(NamedTuple):
+    iterations: Tensor
+    initial_cost: Tensor
+    final_cost: Tensor
+    lam: Tensor
+
+
+def lm_loop(state, cost_fn, step_fn, config: BAConfig):
+    """The LM loop both engines share.
+
+    ``cost_fn(state)`` → 0-d cost; ``step_fn(state, lam)`` → the proposed
+    state.  A step is taken when its cost is lower (else the damping goes
+    up); the loop stops after ``config.max_iterations`` or when an accepted
+    step lowers the cost by less than ``config.rtol`` relative — read on
+    the host once an iteration, as the reference's ``while_loop`` tests it.
+    """
+    cost0 = cost_fn(state)
+    cost = cost0
+    lam = torch.full((), config.damping_init, dtype=torch.float32, device=cost0.device)
+    it = 0
+    while it < config.max_iterations:
+        new_state = step_fn(state, lam)
+        new_cost = cost_fn(new_state)
+        accept = new_cost < cost
+        state = _select(accept, new_state, state)
+        cost_next = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, lam * config.damping_down,
+                          lam * config.damping_up).clamp(1e-10, 1e6)
+        rel = (cost - cost_next).abs() / cost.clamp_min(1e-12)
+        done = accept & (rel < config.rtol)
+        cost = cost_next
+        it += 1
+        if bool(done):
+            break
+    return state, LMStats(iterations=torch.tensor(it), initial_cost=cost0,
+                          final_cost=cost, lam=lam)
+
+
+def _select(accept: Tensor, new, old):
+    """Field-wise ``torch.where(accept, new, old)`` over a state dataclass
+    (poses and X change; the rest is shared)."""
+    return dataclasses.replace(
+        old,
+        poses=Pose(R=torch.where(accept, new.poses.R, old.poses.R),
+                   t=torch.where(accept, new.poses.t, old.poses.t)),
+        X=torch.where(accept, new.X, old.X))
+
+
+def bundle_adjust(state: BAState, K: CameraIntrinsics, config: BAConfig = BAConfig()
+                  ) -> Tuple[BAState, LMStats]:
+    """Run LM to convergence (or ``config.max_iterations``); the cost never
+    increases (rejected steps keep the state and raise the damping)."""
+    pin_fp32()
+    if config.solver not in ("cholesky", "pcg"):
+        raise ValueError(f"unknown solver: {config.solver!r}")
+
+    def step(st: BAState, lam: Tensor) -> BAState:
+        r, Jc, Jl = residuals_and_jacobians(st.poses, st.X, st.uv, st.mask, K)
+        w = huber_weights(r, config.huber_delta) * st.mask.to(r.dtype)
+        blocks = build_normal_equations(r, Jc, Jl, w)
+        if config.solver == "pcg":
+            dc, dl = solve_schur_pcg(blocks, lam, config.pcg_iterations)
+        else:
+            dc, dl = solve_schur(blocks, lam)
+        return dataclasses.replace(st, poses=retract(st.poses, st.cam_fixed, dc),
+                                   X=st.X + dl)
+
+    return lm_loop(state, lambda st: ba_cost(st, K, config.huber_delta), step, config)
+
+
+def grid_from_obs(cam_idx: Tensor, lm_idx: Tensor, uv: Tensor, obs_mask: Tensor,
+                  num_cameras: int, num_landmarks: int) -> Tuple[Tensor, Tensor]:
+    """Flattened observation list → dense [C, L] grid (uv, mask).  Invalid
+    entries land in a spare row and column that are sliced off; for a
+    duplicate (c, l) pair one of the writes wins (which one is not
+    specified, as in the reference's scatter)."""
+    C, L = num_cameras, num_landmarks
+    dev = uv.device
+    c = torch.where(obs_mask, cam_idx.long(), C)
+    l_ = torch.where(obs_mask, lm_idx.long(), L)
+    uv_grid = torch.zeros(C + 1, L + 1, 2, dtype=uv.dtype, device=dev)
+    m_grid = torch.zeros(C + 1, L + 1, dtype=torch.bool, device=dev)
+    uv_grid[c, l_] = uv
+    m_grid[c, l_] = obs_mask.bool()
+    return uv_grid[:C, :L], m_grid[:C, :L]

@@ -1,0 +1,224 @@
+"""Sparse observation-list bundle adjustment, O(observations) memory — port
+of ``points_matching_tpu/ba/sparse.py``.
+
+Everything is computed from the flat observation arrays (cam_idx, lm_idx,
+uv): per-observation residuals and closed-form Jacobians, normal-equation
+blocks by ``index_add_`` (the reference's ``segment_sum``), and the reduced
+camera system solved by Jacobi-preconditioned CG with an implicit Schur
+matvec — ``[C, L]`` never exists:
+
+    S x = U x − Σ_l W_{·l} V_l⁻¹ (Σ_o W_oᵀ x_{cam(o)})
+
+Duplicate (c, l) observations add, exactly.  ``BAConfig.obs_layout`` is
+accepted with every value and always runs the scatter form: the
+reference's ``'sorted'`` layout (one-hot GEMM camera sums, cumsum-diff
+landmark sums) exists because scatters run on the TPU's scalar unit, and is
+not ported.  On CUDA ``index_add_`` adds with float atomics, so two runs of
+the same problem may differ in the last bits (and an LM accept/reject may
+flip); runs on the card are held to the CPU by cost, not by bits.
+The reference's ``axis_name`` (observation sharding under ``shard_map``)
+belongs to the parallel layer and is not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from points_matching_tpu_torch.ba.lm import LMStats, lm_loop, retract, robust_cost
+from points_matching_tpu_torch.ba.residuals import huber_weights, projection_jacobians
+from points_matching_tpu_torch.ba.schur import _damp, _inv3, pcg
+from points_matching_tpu_torch.core.config import BAConfig
+from points_matching_tpu_torch.core.device import pin_fp32
+from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
+
+Tensor = torch.Tensor
+SparseLMStats = LMStats
+
+
+@dataclasses.dataclass
+class SparseBAState:
+    """BA problem as flat observation lists (padded + masked)."""
+
+    poses: Pose               # [C] world→camera
+    X: Tensor                 # [L, 3]
+    cam_idx: Tensor           # [O] int32 camera per observation
+    lm_idx: Tensor            # [O] int32 landmark per observation
+    uv: Tensor                # [O, 2] measurements
+    obs_mask: Tensor          # [O] validity
+    cam_fixed: Tensor         # [C] bool — gauge-fixed cameras
+    lm_fixed: Tensor          # [L] bool — held-constant landmarks: their
+                              # observations still constrain cameras (the U
+                              # term) but they leave the Schur elimination
+                              # (V⁻¹ rows zeroed, so dl is exactly 0)
+
+    @property
+    def num_cameras(self) -> int:
+        return self.poses.t.shape[0]
+
+    @property
+    def num_landmarks(self) -> int:
+        return self.X.shape[0]
+
+    @property
+    def num_observations(self) -> int:
+        return self.uv.shape[0]
+
+
+def make_sparse_ba_state(poses: Pose, X: Tensor, cam_idx: Tensor, lm_idx: Tensor,
+                         uv: Tensor, obs_mask: Tensor, num_fixed_cameras: int = 1,
+                         cam_fixed: Optional[Tensor] = None,
+                         lm_fixed: Optional[Tensor] = None) -> SparseBAState:
+    """The first ``num_fixed_cameras`` cameras fixed and no landmark fixed,
+    unless ``cam_fixed`` / ``lm_fixed`` masks are given."""
+    C, L = poses.t.shape[0], X.shape[0]
+    dev = X.device
+    if cam_fixed is None:
+        cam_fixed = torch.arange(C, device=dev) < num_fixed_cameras
+    if lm_fixed is None:
+        lm_fixed = torch.zeros(L, dtype=torch.bool, device=dev)
+    return SparseBAState(poses=poses, X=X, cam_idx=cam_idx.to(torch.int32),
+                         lm_idx=lm_idx.to(torch.int32), uv=uv, obs_mask=obs_mask.bool(),
+                         cam_fixed=cam_fixed.bool(), lm_fixed=lm_fixed.bool())
+
+
+def _gathered(state: SparseBAState):
+    """Clipped per-observation indices and the gathered R, t, X."""
+    c = state.cam_idx.long().clamp(0, state.num_cameras - 1)
+    l_ = state.lm_idx.long().clamp(0, state.num_landmarks - 1)
+    return c, l_, state.poses.R[c], state.poses.t[c], state.X[l_]
+
+
+def sparse_residuals(state: SparseBAState, K: CameraIntrinsics) -> Tensor:
+    """Masked per-observation residuals [O, 2] (invalid → 0)."""
+    _, _, R, t, Xo = _gathered(state)
+    xc = (R * Xo[:, None, :]).sum(2) + t
+    z = xc[:, 2].clamp_min(1e-6)
+    r = torch.stack([K.fx * xc[:, 0] / z + K.cx - state.uv[:, 0],
+                     K.fy * xc[:, 1] / z + K.cy - state.uv[:, 1]], -1)
+    return torch.where(state.obs_mask[:, None], r, torch.zeros_like(r))
+
+
+def sparse_residuals_and_jacobians(state: SparseBAState, K: CameraIntrinsics
+                                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """r [O, 2], Jc [O, 2, 6], Jl [O, 2, 3] in closed form (masked rows
+    zero); see ``ba/residuals.py`` for the forms."""
+    _, _, R, t, Xo = _gathered(state)
+    xc = (R * Xo[:, None, :]).sum(2) + t
+    u, v, Jc, Jl = projection_jacobians(xc, R, K)
+    r = torch.stack([K.fx * u + K.cx - state.uv[:, 0],
+                     K.fy * v + K.cy - state.uv[:, 1]], -1)
+    m = state.obs_mask[:, None]
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    return (torch.where(m, r, zero), torch.where(m[..., None], Jc, zero),
+            torch.where(m[..., None], Jl, zero))
+
+
+class SparseNormalEq(NamedTuple):
+    """Normal-equation blocks in observation-list form; the coupling W stays
+    per observation ([O, 6, 3])."""
+
+    U: Tensor        # [C, 6, 6]
+    V: Tensor        # [L, 3, 3]
+    Wo: Tensor       # [O, 6, 3] per-observation coupling Jcᵀ w Jl
+    bc: Tensor       # [C, 6]
+    bl: Tensor       # [L, 3]
+    cam: Tensor      # [O] clipped camera index (int64)
+    lm: Tensor       # [O] clipped landmark index (int64)
+
+
+def _seg_sum(values: Tensor, index: Tensor, n: int) -> Tensor:
+    """Σ of the rows of ``values`` per segment ``index`` → [n, ...]."""
+    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    return out.index_add_(0, index, values)
+
+
+def _outer2(A: Tensor, B: Tensor) -> Tensor:
+    """Σ_k A[:, k, :, None] · B[:, k, None, :] over the residual axis k = 2
+    (broadcast products, not a batched GEMM)."""
+    return A[:, 0, :, None] * B[:, 0, None, :] + A[:, 1, :, None] * B[:, 1, None, :]
+
+
+def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
+                                  Jl: Tensor, weights: Tensor) -> SparseNormalEq:
+    """Scatter-add assembly of the GN blocks; weights [O] (robust × valid)."""
+    C, L = state.num_cameras, state.num_landmarks
+    cam = state.cam_idx.long().clamp(0, C - 1)
+    lm = state.lm_idx.long().clamp(0, L - 1)
+    w = weights[:, None, None]
+    Jcw = Jc * w
+    Uo = _outer2(Jcw, Jc)
+    Vo = _outer2(Jl * w, Jl)
+    Wo = _outer2(Jcw, Jl)
+    wr = r * weights[:, None]
+    bco = -(Jc[:, 0] * wr[:, 0:1] + Jc[:, 1] * wr[:, 1:2])
+    blo = -(Jl[:, 0] * wr[:, 0:1] + Jl[:, 1] * wr[:, 1:2])
+    return SparseNormalEq(U=_seg_sum(Uo, cam, C), V=_seg_sum(Vo, lm, L), Wo=Wo,
+                          bc=_seg_sum(bco, cam, C), bl=_seg_sum(blo, lm, L),
+                          cam=cam, lm=lm)
+
+
+def sparse_schur_matvec(eq: SparseNormalEq, Vinv: Tensor, lam, x: Tensor) -> Tensor:
+    """Implicit S @ x = (U − W V⁻¹ Wᵀ) x via two scatter-adds.  [C, 6]."""
+    C, L = eq.U.shape[0], eq.V.shape[0]
+    Ux = (_damp(eq.U, lam) * x[:, None, :]).sum(-1)
+    t = _seg_sum((eq.Wo * x[eq.cam][:, :, None]).sum(1), eq.lm, L)      # [L, 3]
+    u = (Vinv * t[:, None, :]).sum(2)
+    y = _seg_sum((eq.Wo * u[eq.lm][:, None, :]).sum(2), eq.cam, C)      # [C, 6]
+    return Ux - y
+
+
+def _sparse_schur_prep(eq: SparseNormalEq, lam, lm_fixed: Optional[Tensor] = None):
+    """Damped V⁻¹ (zero on ``lm_fixed`` rows), the reduced gradient g, and
+    the Jacobi preconditioner (inverse 6×6 diagonal blocks of S)."""
+    C = eq.U.shape[0]
+    Vinv = _inv3(_damp(eq.V, lam))
+    if lm_fixed is not None:
+        Vinv = torch.where(lm_fixed[:, None, None], torch.zeros_like(Vinv), Vinv)
+    Vb = (Vinv * eq.bl[:, None, :]).sum(2)
+    g = eq.bc - _seg_sum((eq.Wo * Vb[eq.lm][:, None, :]).sum(2), eq.cam, C)
+    Vv = Vinv[eq.lm]                                                    # [O, 3, 3]
+    WV = (eq.Wo[:, :, :, None] * Vv[:, None, :, :]).sum(2)             # [O, 6, 3]
+    WVWo = (WV[:, :, None, :] * eq.Wo[:, None, :, :]).sum(3)           # [O, 6, 6]
+    S_diag = _damp(eq.U, lam) - _seg_sum(WVWo, eq.cam, C)
+    return Vinv, g, torch.linalg.inv_ex(S_diag)[0]
+
+
+def solve_sparse_schur_pcg(eq: SparseNormalEq, lam, iterations: int = 50,
+                           lm_fixed: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Jacobi-preconditioned CG on the implicit reduced camera system +
+    landmark back-substitution → (dc [C, 6], dl [L, 3]; ``lm_fixed`` rows
+    of dl exactly 0)."""
+    L = eq.V.shape[0]
+    Vinv, g, Minv = _sparse_schur_prep(eq, lam, lm_fixed)
+    dc = pcg(lambda x: sparse_schur_matvec(eq, Vinv, lam, x),
+             lambda r: (Minv * r[:, None, :]).sum(-1), g, iterations)
+    rhs = eq.bl - _seg_sum((eq.Wo * dc[eq.cam][:, :, None]).sum(1), eq.lm, L)
+    return dc, (Vinv * rhs[:, None, :]).sum(2)
+
+
+def sparse_ba_cost(state: SparseBAState, K: CameraIntrinsics,
+                   huber_delta: float = 0.0) -> Tensor:
+    return robust_cost(sparse_residuals(state, K), state.obs_mask, huber_delta)
+
+
+def bundle_adjust_sparse(state: SparseBAState, K: CameraIntrinsics,
+                         config: BAConfig = BAConfig()
+                         ) -> Tuple[SparseBAState, SparseLMStats]:
+    """LM on observation lists — the contract of ``ba.lm.bundle_adjust``
+    (monotone cost, same stopping rule) at O(observations) memory.  The
+    solver is always the implicit-Schur PCG (``config.pcg_iterations``)."""
+    pin_fp32()
+
+    def step(st: SparseBAState, lam: Tensor) -> SparseBAState:
+        r, Jc, Jl = sparse_residuals_and_jacobians(st, K)
+        w = huber_weights(r, config.huber_delta) * st.obs_mask.to(r.dtype)
+        eq = build_sparse_normal_equations(st, r, Jc, Jl, w)
+        dc, dl = solve_sparse_schur_pcg(eq, lam, config.pcg_iterations,
+                                        lm_fixed=st.lm_fixed)
+        return dataclasses.replace(st, poses=retract(st.poses, st.cam_fixed, dc),
+                                   X=st.X + dl)
+
+    return lm_loop(state, lambda st: sparse_ba_cost(st, K, config.huber_delta),
+                   step, config)

@@ -15,7 +15,13 @@ import numpy as np
 import torch
 
 from points_matching_tpu_torch.core import config as _config
-from points_matching_tpu_torch.core.types import Descriptors, Keypoints, Matches
+from points_matching_tpu_torch.core.types import (
+    CameraIntrinsics,
+    Descriptors,
+    Keypoints,
+    Matches,
+    Pose,
+)
 
 
 def config_from_dict(d: Mapping[str, Any], cls: type = _config.TwoViewConfig):
@@ -77,3 +83,49 @@ def matches_from_numpy(m, device="cpu") -> Matches:
         distance=_tensor(m.distance, torch.float32, device),
         mask=_tensor(m.mask, torch.bool, device),
     )
+
+
+def pose_from_numpy(pose, device="cpu") -> Pose:
+    """Pose from any object with ``R`` [..., 3, 3] and ``t`` [..., 3]."""
+    return Pose(R=_tensor(pose.R, torch.float32, device),
+                t=_tensor(pose.t, torch.float32, device))
+
+
+def intrinsics_from_numpy(K, device="cpu") -> CameraIntrinsics:
+    """CameraIntrinsics from any object with ``fx/fy/cx/cy``, or from a 3×3
+    matrix."""
+    if hasattr(K, "fx"):
+        return CameraIntrinsics(*(_tensor(getattr(K, k), torch.float32, device)
+                                  for k in ("fx", "fy", "cx", "cy")))
+    return CameraIntrinsics.from_matrix(_tensor(K, torch.float32, device))
+
+
+def sfm_state_from_numpy(state, device="cpu"):
+    """The port's ``SfMState`` from any object with the reference's SfM
+    state fields (``poses``, ``cam_mask``, ``X``, ..., ``num_obs``), e.g. a
+    state the JAX package built, so that both packages continue from it."""
+    from points_matching_tpu_torch.pipelines.sfm import SfMState
+
+    kinds = {"cam_mask": torch.bool, "lm_mask": torch.bool, "obs_mask": torch.bool,
+             "prev_mask": torch.bool, "obs_cam": torch.int32, "obs_lm": torch.int32,
+             "prev_lm": torch.int32, "num_cams": torch.int32, "num_lms": torch.int32,
+             "num_obs": torch.int32}
+    fields = {}
+    for f in dataclasses.fields(SfMState):
+        value = getattr(state, f.name)
+        fields[f.name] = (pose_from_numpy(value, device) if f.name == "poses" else
+                          _tensor(value, kinds.get(f.name, torch.float32), device))
+    return SfMState(**fields)
+
+
+def sparse_ba_state_from_numpy(state, device="cpu"):
+    """The port's ``SparseBAState`` from any object with the reference's
+    sparse-BA state fields (``cam_fixed`` and ``lm_fixed`` included)."""
+    from points_matching_tpu_torch.ba.sparse import make_sparse_ba_state
+
+    return make_sparse_ba_state(
+        pose_from_numpy(state.poses, device), _tensor(state.X, torch.float32, device),
+        _tensor(state.cam_idx, torch.int32, device), _tensor(state.lm_idx, torch.int32, device),
+        _tensor(state.uv, torch.float32, device), _tensor(state.obs_mask, torch.bool, device),
+        cam_fixed=_tensor(state.cam_fixed, torch.bool, device),
+        lm_fixed=_tensor(state.lm_fixed, torch.bool, device))

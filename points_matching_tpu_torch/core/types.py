@@ -16,6 +16,13 @@ import torch
 Tensor = torch.Tensor
 
 
+def take(x: Tensor, i: Tensor) -> Tensor:
+    """``x[i]`` for a 0-d index tensor without reading it on the host
+    (plain indexing with a 0-d CUDA tensor converts it to a Python int,
+    which waits for the device)."""
+    return x.index_select(0, i.reshape(1).long())[0]
+
+
 @dataclasses.dataclass
 class Keypoints:
     """Fixed-capacity set of 2D keypoints.
@@ -116,3 +123,130 @@ class TwoViewEstimate:
     inlier_mask: Tensor
     num_inliers: Tensor
     residual_mean: Tensor
+
+
+@dataclasses.dataclass
+class CameraIntrinsics:
+    """Pinhole intrinsics.
+
+    Attributes:
+      fx, fy, cx, cy: float32 scalar tensors.
+    """
+
+    fx: Tensor
+    fy: Tensor
+    cx: Tensor
+    cy: Tensor
+
+    @classmethod
+    def from_matrix(cls, K: Tensor) -> "CameraIntrinsics":
+        return cls(fx=K[..., 0, 0], fy=K[..., 1, 1], cx=K[..., 0, 2], cy=K[..., 1, 2])
+
+    def to(self, device) -> "CameraIntrinsics":
+        return CameraIntrinsics(*(x.to(device) for x in (self.fx, self.fy, self.cx, self.cy)))
+
+    def matrix(self) -> Tensor:
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        rows = [
+            torch.stack([self.fx, z, self.cx], -1),
+            torch.stack([z, self.fy, self.cy], -1),
+            torch.stack([z, z, o], -1),
+        ]
+        return torch.stack(rows, -2)
+
+    def normalize_points(self, xy: Tensor) -> Tensor:
+        """Pixel → normalized camera coordinates."""
+        f = torch.stack([self.fx, self.fy], -1)
+        c = torch.stack([self.cx, self.cy], -1)
+        return (xy - c) / f
+
+    def project(self, xyz_cam: Tensor, eps: float = 1e-9) -> Tensor:
+        """Camera-frame 3D points → pixel coordinates."""
+        z = xyz_cam[..., 2:3]
+        uv = xyz_cam[..., :2] / torch.where(z.abs() < eps, torch.full_like(z, eps), z)
+        f = torch.stack([self.fx, self.fy], -1)
+        c = torch.stack([self.cx, self.cy], -1)
+        return uv * f + c
+
+
+@dataclasses.dataclass
+class Pose:
+    """SE(3) world→camera transform: x_cam = R @ x_world + t.
+
+    Attributes:
+      R: [..., 3, 3] rotation.
+      t: [..., 3] translation.
+    """
+
+    R: Tensor
+    t: Tensor
+
+    @classmethod
+    def identity(cls, batch: tuple = (), dtype=torch.float32, device="cpu") -> "Pose":
+        R = torch.eye(3, dtype=dtype, device=device).expand(*batch, 3, 3).clone()
+        return cls(R=R, t=torch.zeros(*batch, 3, dtype=dtype, device=device))
+
+    def __getitem__(self, i) -> "Pose":
+        return Pose(R=self.R[i], t=self.t[i])
+
+    def compose(self, other: "Pose") -> "Pose":
+        """self ∘ other: apply ``other`` first, then ``self``."""
+        return Pose(R=self.R @ other.R,
+                    t=(self.R @ other.t[..., None])[..., 0] + self.t)
+
+    def inverse(self) -> "Pose":
+        Rt = self.R.transpose(-1, -2)
+        return Pose(R=Rt, t=-(Rt @ self.t[..., None])[..., 0])
+
+    def transform(self, xyz: Tensor) -> Tensor:
+        """Apply to points [..., N, 3] (the pose broadcasts over N)."""
+        return (self.R[..., None, :, :] * xyz[..., None, :]).sum(-1) + self.t[..., None, :]
+
+    def matrix34(self) -> Tensor:
+        return torch.cat([self.R, self.t[..., :, None]], -1)
+
+
+@dataclasses.dataclass
+class Landmarks:
+    """Fixed-capacity 3D map points.
+
+    Attributes:
+      xyz:  [L, 3] float32 world coordinates.
+      mask: [L] bool — valid landmarks.
+    """
+
+    xyz: Tensor
+    mask: Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[-2]
+
+    @classmethod
+    def empty(cls, capacity: int, dtype=torch.float32, device="cpu") -> "Landmarks":
+        return cls(xyz=torch.zeros(capacity, 3, dtype=dtype, device=device),
+                   mask=torch.zeros(capacity, dtype=torch.bool, device=device))
+
+
+@dataclasses.dataclass
+class Observations:
+    """Fixed-capacity reprojection-observation list for bundle adjustment:
+    entry k links camera ``cam_idx[k]`` and landmark ``lm_idx[k]`` to a
+    measured pixel ``uv[k]``.
+
+    Attributes:
+      cam_idx: [K] int32.
+      lm_idx:  [K] int32.
+      uv:      [K, 2] float32 measured pixel coordinates.
+      mask:    [K] bool.
+    """
+
+    cam_idx: Tensor
+    lm_idx: Tensor
+    uv: Tensor
+    mask: Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.cam_idx.shape[-1]

@@ -16,17 +16,19 @@
 //
 // Block: 128 threads, SGEMM-style register tiles.  The block's 128 query
 // rows and a double-buffered ring of 64-row train tiles live in shared
-// memory (69 KB, dynamic; rows padded to 68 floats); train tiles arrive by
+// memory (69 KB at D = 64, 37 KB at D = 32, dynamic; rows padded to D + 4
+// floats); train tiles arrive by
 // cp.async while the previous tile is consumed, two barriers a tile.  Lane
 // (qg, cg) of warp w holds a 4 × 16 micro-tile: query rows 32w + qg + 8r
 // and tile columns cg + 4c.  The 8 lanes of a quarter-warp share their
 // columns (a train load is one broadcast address per quarter) and read 8
 // query rows that fall in disjoint bank groups, so 20 16-byte loads feed
 // 256 FMAs a k-step of 4.  Each (query, train) cell is ONE fp32 fmaf chain
-// over k = 0..63 in order, whatever the split or the tiling, so one pair
+// over k = 0..D−1 in order, whatever the split or the tiling, so one pair
 // alone and the same pair inside a batch give the same bits.  ‖t‖² and ‖q‖²
-// are fp32, from the unrounded rows: four threads per row each sum 16 k in
-// one chain, then (s0 + s1) + (s2 + s3).
+// are fp32, from the unrounded rows: four threads per row each sum D/4 k in
+// one chain, then (s0 + s1) + (s2 + s3).  D is a template parameter, built
+// for 32 and 64.
 //
 // Top-2: each thread visits its columns in increasing order with the strict
 // `<` update (PmtTop2::push), starting from the sentinels (1e30, 0); the 4
@@ -57,17 +59,22 @@
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int D = 64;                // descriptor width: 64-d SURF
-constexpr int LD = D + 4;            // padded shared-memory row, in floats
+// Descriptor widths D: 64 (SURF) and 32 (the synthetic SfM sequences).
+// A shared-memory row is padded to D + 4 floats; with D ∈ {32, 64} that is
+// 4 banks mod 32, so the 8 query rows a quarter-warp reads stay in
+// disjoint bank groups.
 constexpr int kThreads = 128;
 constexpr int kRowsPerBlock = kThreads;   // query rows of a block: 32 a warp
 constexpr int kPrepRows = kThreads / 4;   // rows of one ‖·‖² pass
 constexpr int kTileCols = 64;        // train rows of a tile: 4 lane groups × 16
-constexpr int kSmemFloats = (kRowsPerBlock + 2 * kTileCols) * LD + 2 * kTileCols +
-                            kRowsPerBlock;
-constexpr int kSmemBytes = kSmemFloats * 4;   // 70,656: dynamic, above 48 KB
+template <int D>
+constexpr int smem_bytes() {         // 70,656 at D = 64, 37,888 at D = 32
+  return ((kRowsPerBlock + 2 * kTileCols) * (D + 4) + 2 * kTileCols + kRowsPerBlock) * 4;
+}
 constexpr int kMergeThreads = 256;
 
 __device__ __forceinline__ float4 round_bf16(float4 v) {
@@ -77,17 +84,17 @@ __device__ __forceinline__ float4 round_bf16(float4 v) {
                      __bfloat162float(__float2bfloat16_rn(v.w)));
 }
 
-// ‖row‖² of a 64-float shared-memory row, four lanes per row: lane `part`
-// sums k = 16·part..16·part+15 in one chain; every lane of the four gets
-// (s0 + s1) + (s2 + s3), bit for bit (IEEE addition commutes).  With BF16
-// the lane then rounds its quarter of the row in place: ‖·‖² is taken on
-// the unrounded row, and no other lane reads that quarter in this phase.
-template <bool BF16>
+// ‖row‖² of a D-float shared-memory row, four lanes per row: lane `part`
+// sums k = (D/4)·part..(D/4)·(part+1)−1 in one chain; every lane of the four
+// gets (s0 + s1) + (s2 + s3), bit for bit (IEEE addition commutes).  With
+// BF16 the lane then rounds its quarter of the row in place: ‖·‖² is taken
+// on the unrounded row, and no other lane reads that quarter in this phase.
+template <int D, bool BF16>
 __device__ __forceinline__ float prep_row(float* row, int part) {
-  float4* x = reinterpret_cast<float4*>(row + 16 * part);
+  float4* x = reinterpret_cast<float4*>(row + (D / 4) * part);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < D / 16; ++i) {
     const float4 v = x[i];
     s = fmaf(v.x, v.x, s);
     s = fmaf(v.y, v.y, s);
@@ -118,7 +125,7 @@ __device__ __forceinline__ void write_result(const PmtTop2<float>& p, float q2,
   }
 }
 
-template <bool BF16, bool POINTS>
+template <int D, bool BF16, bool POINTS>
 __global__ void __launch_bounds__(kThreads, 3)
 l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
                const uint8_t* __restrict__ t_mask,
@@ -126,6 +133,8 @@ l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
                int* __restrict__ idx, float* __restrict__ pts,
                int4* __restrict__ part, float* __restrict__ q2buf, int N1,
                int N2, int P) {
+  constexpr int LD = D + 4;            // padded shared-memory row, in floats
+  constexpr int kChunks = D / 4;       // 16-byte chunks of a row
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                                // [kRowsPerBlock][LD]
   float* ts = qs + kRowsPerBlock * LD;             // [2][kTileCols][LD]
@@ -149,8 +158,8 @@ l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
 
   // rows past the end are zero-filled: a zero query row is never written
   // out, a zero train row gets ‖t‖² = 1e30 and never beats the sentinel
-  for (int e = tid; e < kRowsPerBlock * (D / 4); e += kThreads) {
-    const int r = e >> 4, c = 4 * (e & 15);
+  for (int e = tid; e < kRowsPerBlock * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = 4 * (e % kChunks);
     const bool ok = row0 + r < N1;
     pmt_cp_async16_zfill(&qs[r * LD + c],
                          ok ? qb + static_cast<size_t>(row0 + r) * D + c : q, ok);
@@ -158,8 +167,8 @@ l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
   auto stage = [&](int tile, int buf) {
     const int base = begin + tile * kTileCols;
     float* dst = ts + buf * kTileCols * LD;
-    for (int e = tid; e < kTileCols * (D / 4); e += kThreads) {
-      const int r = e >> 4, c = 4 * (e & 15);
+    for (int e = tid; e < kTileCols * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = 4 * (e % kChunks);
       const bool ok = base + r < end;
       pmt_cp_async16_zfill(&dst[r * LD + c],
                            ok ? tb + static_cast<size_t>(base + r) * D + c : t, ok);
@@ -183,7 +192,7 @@ l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
   __syncthreads();
 #pragma unroll
   for (int h = 0; h < kRowsPerBlock / kPrepRows; ++h) {
-    const float s2 = prep_row<BF16>(&qs[(pr + kPrepRows * h) * LD], pq);
+    const float s2 = prep_row<D, BF16>(&qs[(pr + kPrepRows * h) * LD], pq);
     if (pq == 0) q2s[pr + kPrepRows * h] = s2;
   }
 
@@ -201,7 +210,7 @@ l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
     const int m_next = valid_bits(it + 1);
 #pragma unroll
     for (int h = 0; h < kTileCols / kPrepRows; ++h) {
-      const float s2 = prep_row<BF16>(&tile[(pr + kPrepRows * h) * LD], pq);
+      const float s2 = prep_row<D, BF16>(&tile[(pr + kPrepRows * h) * LD], pq);
       if (pq == 0) t2s[buf * kTileCols + pr + kPrepRows * h] = (m_cur >> h) & 1 ? s2 : kPmtBig;
     }
     __syncthreads();                           // ‖t‖² and (bf16) rounding done
@@ -285,15 +294,16 @@ l2_top2_merge_kernel(const int4* __restrict__ part, const float* __restrict__ q2
   write_result<POINTS>(best, q2buf[o], o, b, t_points, dist, idx, pts, N2, P);
 }
 
-template <bool BF16, bool POINTS>
+template <int D, bool BF16, bool POINTS>
 void launch(const float* q, const float* t, const uint8_t* t_mask,
             const float* t_points, float* dist, int* idx, float* pts, int4* part,
             float* q2buf, int B, int N1, int N2, int P, int S,
             cudaStream_t stream) {
   const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, S, B);
-  cudaFuncSetAttribute(l2_top2_kernel<BF16, POINTS>,
+  constexpr int kSmemBytes = smem_bytes<D>();
+  cudaFuncSetAttribute(l2_top2_kernel<D, BF16, POINTS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  l2_top2_kernel<BF16, POINTS><<<grid, kThreads, kSmemBytes, stream>>>(
+  l2_top2_kernel<D, BF16, POINTS><<<grid, kThreads, kSmemBytes, stream>>>(
       q, t, t_mask, t_points, dist, idx, pts, part, q2buf, N1, N2, P);
   if (S > 1) {
     const size_t rows = static_cast<size_t>(B) * N1;
@@ -307,7 +317,7 @@ void launch(const float* q, const float* t, const uint8_t* t_mask,
 
 // q [B, N1, D] f32, t [B, N2, D] f32, t_mask [B, N2] bool,
 // t_points [B, N2, P] f32 or NULL → dist [B, N1, 2] f32, idx [B, N1, 2] i32,
-// pts [B, N1, P] f32 (when t_points is given).  D must be 64.  S train
+// pts [B, N1, P] f32 (when t_points is given).  D must be 32 or 64.  S train
 // splits; with S > 1, part [B, S, N1] int4 and q2buf [B, N1] f32 are the
 // wrapper's scratch.  Returns the status of the launches.
 PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
@@ -315,7 +325,7 @@ PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
                            void* pts, void* part, void* q2buf, int B, int N1,
                            int N2, int D_in, int P, int S, int bf16,
                            void* stream) {
-  if (D_in != D || S < 1 || S > 65535 || B > 65535 ||
+  if ((D_in != 32 && D_in != 64) || S < 1 || S > 65535 || B > 65535 ||
       (S > 1 && (part == nullptr || q2buf == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
@@ -329,13 +339,18 @@ PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
   auto* pa = static_cast<int4*>(part);
   auto* q2 = static_cast<float*>(q2buf);
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (tp) launch<true, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
-    else launch<true, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
-  } else {
-    if (tp) launch<false, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
-    else launch<false, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
-  }
+  const auto go = [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (bf16) {
+      if (tp) launch<kD, true, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+      else launch<kD, true, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+    } else {
+      if (tp) launch<kD, false, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+      else launch<kD, false, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+    }
+  };
+  if (D_in == 64) go(std::integral_constant<int, 64>{});
+  else go(std::integral_constant<int, 32>{});
   PMT_RETURN_LAUNCH_STATUS();
 }
 

@@ -16,6 +16,7 @@ from points_matching_tpu_torch.geometry.eigen import (
     project_rank2,
     smallest_eigvec_psd,
     smallest_eigvecs_psd,
+    svd3_rotational,
 )
 from points_matching_tpu_torch.geometry.homogeneous import to_homogeneous
 from points_matching_tpu_torch.geometry.normalize import hartley_normalize
@@ -262,3 +263,20 @@ def compute_epilines(points: Tensor, which_image: int, F: Tensor) -> Tensor:
         raise ValueError("which_image must be 1 or 2")
     norm = torch.linalg.vector_norm(lines[..., :2], dim=-1, keepdim=True)
     return lines / norm.clamp_min(1e-12)
+
+
+def essential_from_fundamental(F: Tensor, K1: Tensor, K2: Tensor) -> Tensor:
+    """E = K2ᵀ F K1, projected to the essential manifold (σ = (1, 1, 0))
+    through the fixed-step rotational 3×3 SVD."""
+    E = K2.transpose(-1, -2) @ F @ K1
+    U, S, Vt = svd3_rotational(E)
+    s = (S[..., 0] + S[..., 1]) / 2.0
+    S_proj = torch.stack([s, s, torch.zeros_like(s)], -1)
+    return U @ (S_proj[..., :, None] * Vt)
+
+
+def fundamental_from_essential(E: Tensor, K1: Tensor, K2: Tensor) -> Tensor:
+    """F = K2⁻ᵀ E K1⁻¹ (sign-normalised)."""
+    K1_inv = torch.linalg.inv(K1)
+    K2_inv_t = torch.linalg.inv(K2).transpose(-1, -2)
+    return _sign_normalize(K2_inv_t @ E @ K1_inv)

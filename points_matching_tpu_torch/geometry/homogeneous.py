@@ -10,3 +10,14 @@ Tensor = torch.Tensor
 def to_homogeneous(x: Tensor) -> Tensor:
     """[..., D] → [..., D+1] by appending 1."""
     return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def skew(v: Tensor) -> Tensor:
+    """[..., 3] → [..., 3, 3] cross-product (hat) matrix."""
+    z = torch.zeros_like(v[..., 0])
+    rows = [
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1),
+    ]
+    return torch.stack(rows, -2)

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from points_matching_tpu_torch.core.config import RansacConfig
-from points_matching_tpu_torch.core.types import TwoViewEstimate
+from points_matching_tpu_torch.core.types import TwoViewEstimate, take
 from points_matching_tpu_torch.geometry.fundamental import (
     eight_point,
     epipolar_residual_audit,
@@ -152,7 +152,7 @@ def ransac_fundamental(
         counts = ((d < tau2) & mask[None]).sum(-1, dtype=torch.int32)
     if hyp_valid is not None:
         counts = torch.where(hyp_valid, counts, -1)
-    F = F_h[counts.argmax()]
+    F = take(F_h, counts.argmax())
     best_inliers = (sampson_distance(F, p1, p2) < tau2) & mask
 
     if config.refit:

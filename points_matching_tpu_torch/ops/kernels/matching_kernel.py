@@ -31,6 +31,7 @@ Tensor = torch.Tensor
 _BIG = 1e30
 ROWS_PER_BLOCK = 128    # query rows of a block: kRowsPerBlock in matching_top2.cu
 MIN_SPLIT_COLS = 8      # train columns a split keeps at least
+BUILT_DIMS = (32, 64)   # descriptor widths the CUDA kernel is instantiated for
 
 
 def _check_inputs(q: Tensor, t: Tensor, t_mask: Tensor,
@@ -92,8 +93,9 @@ def _launch(q, t, t_mask, t_points, compute_dtype):
     for x in (q, t, t_mask, t_points):
         if x is not None and not x.is_contiguous():
             raise ValueError("the CUDA kernel needs contiguous inputs")
-    if q.shape[2] != 64:
-        raise ValueError(f"the CUDA kernel is built for D = 64 (SURF), got {q.shape[2]}")
+    if q.shape[2] not in BUILT_DIMS:
+        raise ValueError(f"the CUDA kernel is built for D in {BUILT_DIMS} (64: SURF; "
+                         f"32: the synthetic SfM sequences), got {q.shape[2]}")
     if q.data_ptr() % 16 or t.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs 16-byte aligned q and t")
     lib = _build.library()

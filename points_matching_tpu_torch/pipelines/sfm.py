@@ -1,0 +1,553 @@
+"""Incremental SfM on one GPU — port of ``points_matching_tpu/pipelines/sfm.py``
+(BASELINE config 3 without loop closure).
+
+The map lives on the device in fixed-capacity tensors with validity masks
+(world→camera poses, append-only landmark slots, an observation list).
+Each registered frame: match to the previous frame and to the landmark bank
+(kernel K1, three launches with the bank's cross-check), RANSAC PnP with a
+motion prior, observation append, triangulation of new landmarks; every
+``ba_every`` frames a windowed sparse BA.  The bootstrap runs match →
+RANSAC F (kernels K3 and K2) → E → pose → triangulation.
+
+The reference jits each step and scans a chunk of frames on the device;
+here the steps are eager PyTorch and the chunk is a host loop.  The host
+reads the device in three places only: the LM loop's stopping test (once an
+iteration), whether the frame that is due a local BA registered (once such
+a frame), and the chunk's per-frame stats (once a chunk).
+
+Rows a fixed-capacity append rejects get the position ``capacity``
+(``_append_positions``); every write then goes to a copy with one spare
+row that is sliced off (``_put``), the reference's ``mode="drop"``.
+Rejects are never clamped onto a real slot, where they would race a
+valid write.  Where two valid rows write one slot, the later row wins
+(``_put_last``), as the reference's scatter does on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from points_matching_tpu_torch.ba.sparse import bundle_adjust_sparse, make_sparse_ba_state
+from points_matching_tpu_torch.core.config import SfMConfig
+from points_matching_tpu_torch.core.device import pin_fp32
+from points_matching_tpu_torch.core.types import (
+    CameraIntrinsics,
+    Descriptors,
+    Pose,
+    take,
+)
+from points_matching_tpu_torch.geometry.fundamental import essential_from_fundamental
+from points_matching_tpu_torch.geometry.pnp import ransac_pnp
+from points_matching_tpu_torch.geometry.pose import recover_pose
+from points_matching_tpu_torch.geometry.ransac import ransac_fundamental
+from points_matching_tpu_torch.geometry.triangulate import triangulate_dlt
+from points_matching_tpu_torch.ops.matching import match_descriptors
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class SfMState:
+    """Device-resident incremental-SfM map (all capacities fixed).
+
+    Attributes:
+      poses:    Pose [C] world→camera per registered frame.
+      cam_mask: [C] bool — registered frames.
+      X:        [L, 3] landmark positions; lm_mask [L] bool.
+      lm_desc:  [L, D] last-seen descriptor per landmark.
+      obs_cam/obs_lm/obs_uv/obs_mask: [O]-capacity observation list.
+      prev_kps_xy / prev_desc / prev_mask: the previous registered frame's
+        features; prev_lm [N] int32 the landmark slot each of its keypoints
+        observes, or -1 (track association).
+      num_cams / num_lms / num_obs: 0-d int32 write cursors.
+    """
+
+    poses: Pose
+    cam_mask: Tensor
+    X: Tensor
+    lm_mask: Tensor
+    lm_desc: Tensor
+    obs_cam: Tensor
+    obs_lm: Tensor
+    obs_uv: Tensor
+    obs_mask: Tensor
+    prev_kps_xy: Tensor
+    prev_desc: Tensor
+    prev_mask: Tensor
+    prev_lm: Tensor
+    num_cams: Tensor
+    num_lms: Tensor
+    num_obs: Tensor
+
+    def replace(self, **kw) -> "SfMState":
+        return dataclasses.replace(self, **kw)
+
+
+def init_sfm_state(config: SfMConfig, num_features: int, desc_dim: int,
+                   device="cpu") -> SfMState:
+    C, L, O = config.max_cameras, config.max_landmarks, config.max_observations
+    f32, i32 = torch.float32, torch.int32
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return SfMState(
+        poses=Pose.identity((C,), device=device),
+        cam_mask=zeros(C, dtype=torch.bool),
+        X=zeros(L, 3), lm_mask=zeros(L, dtype=torch.bool), lm_desc=zeros(L, desc_dim),
+        obs_cam=zeros(O, dtype=i32), obs_lm=zeros(O, dtype=i32), obs_uv=zeros(O, 2),
+        obs_mask=zeros(O, dtype=torch.bool),
+        prev_kps_xy=zeros(num_features, 2), prev_desc=zeros(num_features, desc_dim),
+        prev_mask=zeros(num_features, dtype=torch.bool),
+        prev_lm=torch.full((num_features,), -1, dtype=i32, device=device),
+        num_cams=zeros(dtype=i32), num_lms=zeros(dtype=i32), num_obs=zeros(dtype=i32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fixed-capacity appends (scatter with drop-on-overflow)
+# ---------------------------------------------------------------------------
+
+def _append_positions(capacity: int, cursor: Tensor, rows_mask: Tensor) -> Tensor:
+    """Target slot per input row: cursor + rank among the valid rows, or
+    ``capacity`` (out of range on purpose) for invalid and overflowing
+    rows, which every write below drops."""
+    rank = torch.cumsum(rows_mask.to(torch.int32), 0) - 1
+    pos = cursor + rank
+    ok = rows_mask & (pos < capacity)
+    return torch.where(ok, pos, capacity).long()
+
+
+def _put(dst: Tensor, pos: Tensor, src) -> Tensor:
+    """``dst`` with rows ``pos`` set to ``src``; rows with pos ==
+    len(dst) land in a spare row that is sliced off (dropped)."""
+    n = dst.shape[0]
+    out = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
+    if not isinstance(src, torch.Tensor):
+        # a Python value written by index would be copied to the device
+        # first, which waits for it
+        src = torch.full((), src, dtype=dst.dtype, device=dst.device)
+    out[pos.long()] = src
+    return out[:n]
+
+
+def _put_last(dst: Tensor, pos: Tensor, src: Tensor) -> Tensor:
+    """``_put`` where several rows may target one slot: the last such row
+    wins, deterministically."""
+    n = dst.shape[0]
+    pos = pos.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    winner = torch.full((n + 1,), -1, dtype=torch.long, device=pos.device)
+    winner = winner.scatter_reduce(0, pos, rows, "amax")
+    return _put(dst, torch.where(winner[pos] == rows, pos, n), src)
+
+
+def _count(mask: Tensor) -> Tensor:
+    return mask.sum(dtype=torch.int32)
+
+
+def _append_obs(state_obs, cam, lm: Tensor, uv: Tensor, ok: Tensor):
+    """Append (cam, lm, uv) for the rows ``ok`` to the observation list."""
+    obs_cam, obs_lm, obs_uv, obs_mask, cursor = state_obs
+    cap = obs_cam.shape[0]
+    sp = _append_positions(cap, cursor, ok)
+    return (_put(obs_cam, sp, cam), _put(obs_lm, sp, lm.to(torch.int32)),
+            _put(obs_uv, sp, uv), _put(obs_mask, sp, True),
+            torch.clamp_max(cursor + _count(ok), cap).to(torch.int32))
+
+
+def _gather(x: Tensor, idx: Tensor, n: int) -> Tensor:
+    return x[idx.long().clamp(0, n - 1)]
+
+
+class StepStats(NamedTuple):
+    registered: Tensor       # bool — frame accepted
+    num_pnp_inliers: Tensor
+    num_new_landmarks: Tensor
+    pose: Pose
+
+
+def bootstrap_two_view(
+    state: SfMState,
+    kps1_xy: Tensor, desc1: Tensor, mask1: Tensor,
+    kps2_xy: Tensor, desc2: Tensor, mask2: Tensor,
+    K: CameraIntrinsics,
+    generator: Optional[torch.Generator],
+    config: SfMConfig,
+    f_samples: Optional[Tensor] = None,
+) -> Tuple[SfMState, StepStats]:
+    """Initialize the map from the first two frames: match → RANSAC F →
+    E → pose recovery (cheirality) → triangulation.
+
+    ``config.bootstrap_candidates`` independent RANSAC runs are scored by
+    their cheirality-consistent landmark count (the first wins a tie), not
+    by epipolar inliers: a low-parallax F with many inliers can still put
+    many points behind a camera.  ``f_samples`` [candidates, H, 8] injects
+    the minimal sets as row indices into the match list.
+    """
+    tv = config.two_view
+    matches = match_descriptors(Descriptors(data=desc1, mask=mask1),
+                                Descriptors(data=desc2, mask=mask2), tv.matcher)
+    n1 = kps1_xy.shape[0]
+    p1 = _gather(kps1_xy, matches.query_idx, n1)
+    p2 = _gather(kps2_xy, matches.train_idx, n1)
+    p1n, p2n = K.normalize_points(p1), K.normalize_points(p2)
+    Km = K.matrix()
+
+    cands = []
+    for c in range(config.bootstrap_candidates):
+        samples = None if f_samples is None else (p1[f_samples[c].long()],
+                                                  p2[f_samples[c].long()])
+        est = ransac_fundamental(generator, p1, p2, matches.mask, tv.ransac,
+                                 samples=samples)
+        E = essential_from_fundamental(est.F, Km, Km)
+        w = matches.mask & est.inlier_mask
+        pose2, X_cam1, cheir = recover_pose(E, p1n, p2n, w)
+        z = X_cam1[..., 2]
+        # depth sanity: drop points behind / too far (dimensionless |t| = 1)
+        good = w & cheir & (z > 0.05) & (z < 100.0)
+        cands.append((est.num_inliers, pose2, X_cam1, good))
+    b = torch.stack([_count(c[3]) for c in cands]).argmax()
+
+    def pick(i):
+        return take(torch.stack([c[i] for c in cands]), b)
+
+    n_inl, X_cam1, good = pick(0), pick(2), pick(3)
+    pose2 = Pose(R=take(torch.stack([c[1].R for c in cands]), b),
+                 t=take(torch.stack([c[1].t for c in cands]), b))
+
+    L_cap = state.X.shape[0]
+    safe = _append_positions(L_cap, state.num_lms, good)
+    ok = safe < L_cap
+    d_new = _gather(desc1, matches.query_idx, n1)
+    X_new = _put(state.X, safe, X_cam1)
+    lm_mask = _put(state.lm_mask, safe, True)
+    lm_desc = _put(state.lm_desc, safe, d_new)
+    num_lms = torch.clamp_max(state.num_lms + _count(good), L_cap).to(torch.int32)
+
+    obs = (state.obs_cam, state.obs_lm, state.obs_uv, state.obs_mask, state.num_obs)
+    obs = _append_obs(obs, 0, safe, p1, ok)
+    obs = _append_obs(obs, 1, safe, p2, ok)
+
+    poses = Pose(R=state.poses.R.clone(), t=state.poses.t.clone())
+    poses.R[1] = pose2.R
+    poses.t[1] = pose2.t
+    cam_mask = state.cam_mask | (torch.arange(state.cam_mask.shape[0],
+                                              device=kps1_xy.device) < 2)
+
+    # track association for frame 2's keypoints: train index → landmark slot
+    n2 = kps2_xy.shape[0]
+    t_idx = matches.train_idx.long().clamp(0, n2 - 1)
+    prev_lm = _put_last(torch.full((n2,), -1, dtype=torch.int32, device=kps2_xy.device),
+                        torch.where(ok, t_idx, n2), torch.where(ok, safe, -1).to(torch.int32))
+
+    n_new = _count(good)
+    new_state = state.replace(
+        poses=poses, cam_mask=cam_mask, X=X_new, lm_mask=lm_mask, lm_desc=lm_desc,
+        obs_cam=obs[0], obs_lm=obs[1], obs_uv=obs[2], obs_mask=obs[3], num_obs=obs[4],
+        num_lms=num_lms, prev_kps_xy=kps2_xy, prev_desc=desc2, prev_mask=mask2,
+        prev_lm=prev_lm, num_cams=torch.full_like(state.num_cams, 2))
+    stats = StepStats(registered=n_new >= config.keyframe_min_inliers,
+                      num_pnp_inliers=n_inl, num_new_landmarks=n_new, pose=pose2)
+    return new_state, stats
+
+
+class Association(NamedTuple):
+    """A frame's 2D↔3D correspondences: the track rows (frame ↔ previous
+    frame, then the previous keypoint's landmark) followed by the bank rows
+    (frame → landmark bank)."""
+
+    m2d_mask: Tensor      # [N] frame ↔ previous-frame match survived
+    q2: Tensor            # [N] frame keypoint of each track row
+    p2: Tensor            # [N] previous-frame keypoint of each track row
+    tracked: Tensor       # [N] the previous keypoint observes a landmark
+    corr_q: Tensor        # [2N] frame keypoint per correspondence
+    corr_l: Tensor        # [2N] landmark slot per correspondence
+    corr_m: Tensor        # [2N] validity
+    logits: Tensor        # [2N] minimal-set sampling log-weights
+
+
+def associate(state: SfMState, desc: Tensor, fmask: Tensor, config: SfMConfig
+              ) -> Association:
+    """Match a frame to the previous frame (tracks) and to the landmark
+    bank (threshold + mutual cross-check, ``config.map_matcher``)."""
+    L = state.X.shape[0]
+    n = desc.shape[0]
+    frame = Descriptors(data=desc, mask=fmask)
+    m2d = match_descriptors(frame, Descriptors(data=state.prev_desc, mask=state.prev_mask),
+                            config.two_view.matcher)
+    q2 = m2d.query_idx.long().clamp(0, n - 1)
+    p2 = m2d.train_idx.long().clamp(0, n - 1)
+    track_lm = torch.where(m2d.mask, state.prev_lm[p2], -1)
+    tracked = track_lm >= 0
+    m3d = match_descriptors(frame, Descriptors(data=state.lm_desc, mask=state.lm_mask),
+                            config.map_matcher)
+    corr_q = torch.cat([q2, m3d.query_idx.long().clamp(0, n - 1)])
+    corr_l = torch.cat([track_lm.long().clamp(0, L - 1),
+                        m3d.train_idx.long().clamp(0, L - 1)])
+    corr_m = torch.cat([tracked, m3d.mask])
+    # tracked rows are frame-to-frame precise: bias the 6-point draws to them
+    logits = torch.cat([torch.full((q2.shape[0],), 2.0, device=desc.device),
+                        torch.zeros(m3d.query_idx.shape[0], device=desc.device)])
+    return Association(m2d.mask, q2, p2, tracked, corr_q, corr_l, corr_m, logits)
+
+
+def register_frame(
+    state: SfMState,
+    kps_xy: Tensor, desc: Tensor, fmask: Tensor,
+    K: CameraIntrinsics,
+    generator: Optional[torch.Generator],
+    config: SfMConfig,
+    pnp_samples: Optional[Tensor] = None,
+) -> Tuple[SfMState, StepStats]:
+    """Register one frame against the map: associate (``associate``) →
+    RANSAC PnP on the union of track and bank rows, with the last pose as
+    an extra hypothesis → observations for the PnP inliers (one per
+    landmark) and a descriptor refresh → new landmarks from the frame ↔
+    previous-frame matches that have none, triangulated and gated by
+    cheirality, depth and reprojection in both views.  ``pnp_samples``
+    [H, 6] injects the minimal sets as rows of the correspondence list."""
+    with record_function("sfm.associate"):
+        a = associate(state, desc, fmask, config)
+    X3d = state.X[a.corr_l]
+    uvn = K.normalize_points(kps_xy[a.corr_q])
+    prev_cam = (state.num_cams - 1).clamp_min(0)
+    prev_pose = Pose(R=take(state.poses.R, prev_cam), t=take(state.poses.t, prev_cam))
+    samples = None if pnp_samples is None else (X3d[pnp_samples.long()],
+                                                 uvn[pnp_samples.long()])
+    with record_function("sfm.pnp"):
+        pnp = ransac_pnp(generator, X3d, uvn, a.corr_m,
+                         num_hypotheses=config.pnp_hypotheses,
+                         inlier_threshold=config.two_view.ransac.inlier_threshold
+                         / K.fx.clamp_min(1.0),
+                         sample_logits=a.logits, prior_pose=prev_pose, samples=samples)
+    with record_function("sfm.map_update"):
+        return _update_map(state, kps_xy, desc, fmask, K, config, a, prev_pose, pnp)
+
+
+def _update_map(state: SfMState, kps_xy: Tensor, desc: Tensor, fmask: Tensor,
+                K: CameraIntrinsics, config: SfMConfig, a: Association, prev_pose: Pose,
+                pnp) -> Tuple[SfMState, StepStats]:
+    """``register_frame`` after PnP: observations for the inliers and the
+    descriptor refresh, new landmarks, the pose, the track associations."""
+    cam_idx = state.num_cams
+    prev_cam = (cam_idx - 1).clamp_min(0)
+    C, L = state.cam_mask.shape[0], state.X.shape[0]
+    n = kps_xy.shape[0]
+    corr_q, corr_l, q2, p2_ = a.corr_q, a.corr_l, a.q2, a.p2
+    uv = kps_xy[corr_q]
+    thr_px = config.two_view.ransac.inlier_threshold
+    registered = pnp.num_inliers >= config.pnp_min_inliers
+
+    # -- observations + descriptor refresh: the first inlier row per slot --
+    n_corr = corr_q.shape[0]
+    inl = pnp.inlier_mask & a.corr_m
+    ar = torch.arange(n_corr, device=kps_xy.device)
+    first_of_lm = torch.full((L + 1,), n_corr, dtype=torch.long, device=kps_xy.device)
+    first_of_lm = first_of_lm.scatter_reduce(0, torch.where(inl, corr_l, L), ar, "amin")
+    good_obs = inl & (first_of_lm[corr_l] == ar) & registered
+
+    obs = (state.obs_cam, state.obs_lm, state.obs_uv, state.obs_mask, state.num_obs)
+    obs = _append_obs(obs, cam_idx, corr_l, uv, good_obs)
+    lm_desc = _put(state.lm_desc, torch.where(good_obs, corr_l, L), desc[corr_q])
+
+    # -- new landmarks: frame ↔ prev matches whose prev keypoint has no
+    # landmark and whose query landed no map observation this frame --------
+    has_obs_q = _put(torch.zeros(n, dtype=torch.bool, device=kps_xy.device),
+                     torch.where(good_obs, corr_q, n), True)
+    cand = a.m2d_mask & ~a.tracked & ~has_obs_q[q2]
+    uv_c = kps_xy[q2]
+    uv_p = state.prev_kps_xy[p2_]
+    Xn, cheir = triangulate_dlt(prev_pose.matrix34(), pnp.pose.matrix34(),
+                               K.normalize_points(uv_p), K.normalize_points(uv_c))
+    zc = pnp.pose.transform(Xn)[..., 2]
+
+    def reproj_err_px(pose, uv_obs):
+        Xc = pose.transform(Xn)
+        d = Xc[..., :2] / Xc[..., 2:3].clamp_min(1e-6) - K.normalize_points(uv_obs)
+        return torch.linalg.vector_norm(d, dim=-1) * K.fx
+
+    # a false frame ↔ prev match triangulates to a point whose rays do not
+    # meet: gate the reprojection in both views; only a trusted pose (≥
+    # keyframe_min_inliers) may grow the map
+    trusted = pnp.num_inliers >= config.keyframe_min_inliers
+    new_ok = (cand & cheir & (zc > 0.05) & (zc < 100.0)
+              & (reproj_err_px(prev_pose, uv_p) < thr_px)
+              & (reproj_err_px(pnp.pose, uv_c) < thr_px) & registered & trusted)
+
+    lsp = _append_positions(L, state.num_lms, new_ok)
+    lok = lsp < L
+    X_new = _put(state.X, lsp, Xn)
+    lm_mask = _put(state.lm_mask, lsp, True)
+    lm_desc = _put(lm_desc, lsp, desc[q2])
+    num_lms = torch.clamp_max(state.num_lms + _count(new_ok), L).to(torch.int32)
+    obs = _append_obs(obs, prev_cam, lsp, uv_p, lok)
+    obs = _append_obs(obs, cam_idx, lsp, uv_c, lok)
+
+    # -- pose ----------------------------------------------------------------
+    slot = torch.where(cam_idx < C, cam_idx, C).reshape(1)       # C: dropped
+    cur = cam_idx.clamp_max(C - 1)
+    poses = Pose(
+        R=_put(state.poses.R, slot, torch.where(registered, pnp.pose.R, take(state.poses.R, cur))),
+        t=_put(state.poses.t, slot, torch.where(registered, pnp.pose.t, take(state.poses.t, cur))))
+    cam_mask = _put(state.cam_mask, slot, registered)
+    num_cams = torch.where(registered, cam_idx + 1, cam_idx).to(torch.int32)
+
+    # track associations of this frame's keypoints: map observations keep
+    # their landmark, new landmarks get their new slot
+    prev_lm_new = torch.full((n,), -1, dtype=torch.int32, device=kps_xy.device)
+    prev_lm_new = _put_last(prev_lm_new, torch.where(good_obs, corr_q, n),
+                            corr_l.to(torch.int32))
+    prev_lm_new = _put_last(prev_lm_new, torch.where(lok, q2, n), lsp.to(torch.int32))
+
+    new_state = state.replace(
+        poses=poses, cam_mask=cam_mask, X=X_new, lm_mask=lm_mask, lm_desc=lm_desc,
+        obs_cam=obs[0], obs_lm=obs[1], obs_uv=obs[2], obs_mask=obs[3], num_obs=obs[4],
+        num_lms=num_lms, num_cams=num_cams,
+        prev_kps_xy=torch.where(registered, kps_xy, state.prev_kps_xy),
+        prev_desc=torch.where(registered, desc, state.prev_desc),
+        prev_mask=torch.where(registered, fmask, state.prev_mask),
+        prev_lm=torch.where(registered, prev_lm_new, state.prev_lm))
+    stats = StepStats(registered=registered, num_pnp_inliers=pnp.num_inliers,
+                      num_new_landmarks=_count(new_ok), pose=pnp.pose)
+    return new_state, stats
+
+
+def local_bundle_adjust(state: SfMState, K: CameraIntrinsics, config: SfMConfig,
+                        window: int = 8) -> Tuple[SfMState, Tensor]:
+    """Windowed sparse BA over the last ``window`` registered cameras, on the
+    last ``config.local_ba_obs`` rows of the observation list (observations
+    append in time order, so those are the window's).
+
+    Cameras outside the window, the window's first camera and cameras 0–1
+    stay fixed; landmarks created before the slice (slot ≤ the largest slot
+    observed before it — slots are append-only) are held fixed, so their
+    in-slice observations pin the free cameras and the monocular scale.
+    Returns (state with the adjusted poses and landmarks, final cost).
+    """
+    C, L = state.cam_mask.shape[0], state.X.shape[0]
+    O = state.obs_cam.shape[0]
+    Ow = min(config.local_ba_obs, O)
+    dev = state.X.device
+    first = (state.num_cams - window).clamp_min(0)
+    cams = torch.arange(C, device=dev)
+    in_win = (cams >= first) & (cams < state.num_cams)
+
+    start = (state.num_obs - Ow).clamp(0, O - Ow)
+    rows = start + torch.arange(Ow, device=dev)
+    pre = state.obs_mask & (torch.arange(O, device=dev) < start)
+    max_slot_pre = torch.where(pre, state.obs_lm, -1).max()
+    fixed = ~in_win | (cams <= first) | (cams <= 1)
+    ba_state = make_sparse_ba_state(
+        state.poses, state.X, state.obs_cam[rows], state.obs_lm[rows],
+        state.obs_uv[rows], state.obs_mask[rows], cam_fixed=fixed,
+        lm_fixed=torch.arange(L, device=dev) <= max_slot_pre)
+    with record_function("sfm.local_ba"):
+        out, stats = bundle_adjust_sparse(ba_state, K, config.ba)
+    # cam_fixed / lm_fixed zero their updates exactly inside the solver
+    return state.replace(poses=out.poses, X=out.X), stats.final_cost
+
+
+def register_frames_chunk(
+    state: SfMState,
+    frames: Sequence[Tuple[Tensor, Tensor, Tensor]],
+    frame_idx: Sequence[int],
+    K: CameraIntrinsics,
+    generator: Optional[torch.Generator],
+    config: SfMConfig,
+    ba_every: int,
+    window: int,
+) -> Tuple[SfMState, StepStats]:
+    """Register a chunk of frames, with a local BA after each frame whose
+    global index is a multiple of ``ba_every`` and that registered (the
+    only per-frame read of the device).  Returns the stats stacked over the
+    chunk, still on the device."""
+    stats = []
+    for (xy, d, m), i in zip(frames, frame_idx):
+        state, st = register_frame(state, xy, d, m, K, generator, config)
+        if i % ba_every == 0 and bool(st.registered):
+            state, _ = local_bundle_adjust(state, K, config, window)
+        stats.append(st)
+    stacked = StepStats(
+        registered=torch.stack([s.registered for s in stats]),
+        num_pnp_inliers=torch.stack([s.num_pnp_inliers for s in stats]),
+        num_new_landmarks=torch.stack([s.num_new_landmarks for s in stats]),
+        pose=Pose(R=torch.stack([s.pose.R for s in stats]),
+                  t=torch.stack([s.pose.t for s in stats])))
+    return state, stacked
+
+
+@dataclasses.dataclass
+class SfMResult:
+    state: SfMState
+    trajectory: Tensor            # [C, 3] camera centres (world frame)
+    registered: List[bool]
+    stats: List[StepStats]        # per frame, on the CPU
+
+
+def camera_centers(poses: Pose, mask: Tensor) -> Tensor:
+    """World-frame camera centres −Rᵀt (masked rows zeroed)."""
+    c = -(poses.R * poses.t[..., :, None]).sum(-2)
+    return torch.where(mask[:, None], c, torch.zeros_like(c))
+
+
+def _to_cpu_stats(st: StepStats) -> StepStats:
+    """Stats of one frame ([]) or a chunk ([F]) on the host, in one copy."""
+    lead = st.registered.shape
+    flat = torch.cat([torch.stack([st.registered.float(), st.num_pnp_inliers.float(),
+                                   st.num_new_landmarks.float()], -1),
+                      st.pose.R.flatten(-2), st.pose.t], -1).cpu()
+    return StepStats(flat[..., 0] > 0, flat[..., 1].int(), flat[..., 2].int(),
+                     Pose(R=flat[..., 3:12].reshape(*lead, 3, 3), t=flat[..., 12:15]))
+
+
+def run_incremental_sfm(
+    frames,
+    K: CameraIntrinsics,
+    config: SfMConfig = SfMConfig(),
+    seed: int = 0,
+    ba_every: int = 4,
+    chunk_size: int = 16,
+) -> SfMResult:
+    """Bootstrap on the first two frames, register the rest ``chunk_size``
+    frames at a time (stats read once a chunk), then one last local BA.
+
+    Args:
+      frames: sequence of (kps_xy [N, 2], desc [N, D], mask [N]) tensors,
+        all on one device (the run's device).
+      K: intrinsics (moved to the frames' device).
+      seed: seeds the run's ``torch.Generator`` on that device.
+    """
+    frames = list(frames)
+    if len(frames) < 2:
+        raise ValueError("need at least two frames")
+    pin_fp32()
+    dev = frames[0][0].device
+    K = K.to(dev)
+    n_feat, d_dim = frames[0][1].shape
+    state = init_sfm_state(config, n_feat, d_dim, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+
+    state, st = bootstrap_two_view(state, *frames[0], *frames[1], K, generator, config)
+    stats_all = [_to_cpu_stats(st)]
+    registered = [True, True]
+
+    rest = frames[2:]
+    for c0 in range(0, len(rest), chunk_size):
+        chunk = rest[c0:c0 + chunk_size]
+        idx = range(c0 + 2, c0 + 2 + len(chunk))
+        state, sts = register_frames_chunk(state, chunk, idx, K, generator, config,
+                                           ba_every, config.local_ba_window)
+        sts = _to_cpu_stats(sts)                  # one read a chunk
+        for j in range(len(chunk)):
+            stj = StepStats(sts.registered[j], sts.num_pnp_inliers[j],
+                            sts.num_new_landmarks[j], sts.pose[j])
+            stats_all.append(stj)
+            registered.append(bool(stj.registered))
+
+    state, _ = local_bundle_adjust(state, K, config, window=config.local_ba_window)
+    return SfMResult(state=state, trajectory=camera_centers(state.poses, state.cam_mask),
+                     registered=registered, stats=stats_all)

@@ -425,3 +425,60 @@ def test_two_view_pipeline_gpu_matches_cpu(dev):
     assert abs(int(gpu.estimate.num_inliers) - int(cpu.estimate.num_inliers)) <= 3
     assert abs(float((gpu.estimate.F.cpu() * cpu.estimate.F).sum())) >= 0.99
     assert dataclasses.is_dataclass(gpu) and gpu.estimate.F.is_cuda
+
+
+@pytest.mark.parametrize("b,n1,n2,d,masked", [
+    (64, 256, 256, 32, 0.05),        # the 32-d synthetic SfM sequences
+    (2, 300, 77, 32, 0.1),
+    (1, 256, 8192, 64, 0.9),         # a frame against the landmark bank
+    (1, 8192, 256, 64, 0.9),         # the bank's cross-check
+])
+def test_l2_top2_kernel_sfm_shapes(dev, b, n1, n2, d, masked):
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, l2_top2_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, t = _unit(gen, b, n1, d, dev=dev), _unit(gen, b, n2, d, dev=dev)
+    t_mask = torch.rand(b, n2, generator=gen, device=dev) >= masked
+    before = fused_l2_top2.launches
+    kd, ki = fused_l2_top2(q, t, t_mask)
+    assert fused_l2_top2.launches == before + 1
+    pd, pi = l2_top2_plain(q, t, t_mask)
+    torch.cuda.synchronize()
+    # the same tolerances as the 64-d cases above
+    torch.testing.assert_close(kd, pd, atol=1e-5, rtol=0)
+    tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+    assert bool(((ki[..., 0] == pi[..., 0]) | tie).all())
+    assert bool(t_mask.gather(1, ki[..., 0].long()).all())     # only valid rows win
+
+
+def test_incremental_sfm_gpu_matches_cpu(dev):
+    from points_matching_tpu_torch.core.config import (
+        MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig)
+    from points_matching_tpu_torch.data.synthetic import make_tracked_sequence
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.pipelines.sfm import run_incremental_sfm
+    from points_matching_tpu_torch.utils.evaluation import (
+        absolute_trajectory_error, umeyama_alignment)
+
+    # tests/test_sfm.py's 10-frame sequence
+    frames, K, gt = make_tracked_sequence(10, device="cpu")
+    cfg = SfMConfig(
+        two_view=TwoViewConfig(matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.8),
+                               ransac=RansacConfig(num_hypotheses=256, inlier_threshold=2.0)),
+        max_cameras=16, max_landmarks=1024, max_observations=8192, pnp_min_inliers=12)
+    kernels.reset_launch_counts()
+    gpu = run_incremental_sfm([tuple(x.to(dev) for x in f) for f in frames], K, cfg)
+    counts = kernels.launch_counts()
+    cpu = run_incremental_sfm(frames, K, cfg)
+    # K1 at D = 32: the bootstrap's match and three a registered frame
+    assert counts["fused_l2_top2"] == 1 + 3 * 8
+    assert counts["minimal_eight_point"] == counts["ransac_score_hypotheses"] == 4
+    assert gpu.trajectory.is_cuda and all(gpu.registered) and all(cpu.registered)
+    # tests/test_sfm.py's ATE bound, for both; the aligned trajectories
+    # within 2 % of the ~3.2-unit extent of each other
+    tg, tc = gpu.trajectory[:10].cpu(), cpu.trajectory[:10]
+    for traj in (tg, tc):
+        assert float(absolute_trajectory_error(traj, gt).rmse) < 0.05
+    s, R, t = umeyama_alignment(tg, tc)
+    assert float((s * tg @ R.T + t - tc).norm(dim=-1).max()) < 0.02 * 3.15

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (two-view SURF and ORB, incremental
-SfM) once on one CUDA GPU.
+SfM with loop closure, the pose graph, all-pairs scores) once on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
@@ -39,6 +40,10 @@ exits non-zero before the result line:
              cross-check (1 × 8192 × 256 × 64), 90 % of the train rows
              masked, and the 32-d sequences (64 × 256 × 256 × 32), each held
              to its plain version as the 512 × 512 cases are.
+   widths  — K1 and K1b at D = 16 and 48 (padded with zero columns to 32
+             and 64) and 128 (SIFT; its own instance), K4 at W = 4 (padded
+             to 8) and 16 (512-bit; its own instance), 8 pairs each, against
+             their plain versions with the built widths' tolerances.
 5. sfm     — BASELINE config 3 without loop closure: 100 rendered 512×384
              frames → Hessian/SURF on the card → ``run_incremental_sfm``
              (128 / 8,192 / 65,536, ``ba_every=4``, ``chunk_size=16``), held
@@ -54,11 +59,32 @@ exits non-zero before the result line:
    sfm32   — the JAX bench's synthetic tracked sequence (64 frames × 256 ×
              32-d; K1 at D = 32): every frame registered, ATE under 10 % of
              the extent, frames/s and ms per frame as above.
+             Then loop closure on the natural run's trajectory:
+             ``close_loops`` (all-pairs scores on K1 → verification on K1,
+             K3, K2 → pose graph), held to tests/test_sequence_100.py's
+             bounds (≥ 1 candidate, ≥ 1 verified, ATE after closure < 10 %
+             of the extent), its ms, host syncs and launches
+             (``launches_by_path.loop``), and the same call on the CPU with
+             the same injected RANSAC samples: equal candidates, flags and
+             inlier counts, corrected poses within 1e-3.
    ba      — ``bundle_adjust_sparse`` at the JAX bench's BA shape (64 cameras
              × 16,384 landmarks × 131,072 observations): the cost must fall;
              ms per LM iteration and peak memory.
-6. result  — one JSON line of the SfM numbers, one of per-kernel numbers
-             (launches by path: surf, orb, sfm), then the last line
+   pose_graph — ``make_odometry_chain`` (laps of a circuit, noise 0.01, a
+             loop edge at every revisit, every 500 poses) + ``optimize_pose_graph`` at P = 100 (dense; also on the
+             CPU, poses within 1e-4) and P = 4,541 (KITTI 00's length, PCG
+             of 1,000 steps; the default 100 steps reported beside it): cost
+             and mean translation error must fall; ms per GN iteration, host
+             syncs, peak memory.
+   all_pairs — BASELINE config 1's sweep (bench.py ``bench_all_pairs``:
+             1,024 × 256 × 64-d, ratio 0.8) through ``all_pairs_scores`` on
+             K1: seconds a sweep and pairs/s beside the FMA bound, peak
+             memory; 8 query frames × all 1,024 against the plain version
+             (differences only at f32 near-ties of the ratio); a planted
+             near-duplicate pair (7, 900) must be each other's best.
+6. result  — one JSON line of the SfM, pose-graph and all-pairs numbers,
+             one of per-kernel numbers (launches by path: surf, orb, sfm,
+             loop, all_pairs), then the last line
              ``{"ok": true, "device": {...}}``.
 
 Bounds use the card's published peaks (NVIDIA H100 SXM data sheet): 3.35
@@ -481,6 +507,8 @@ def _slice_sfm(dev, K_mod) -> dict:
         _check(launches[k] > 0, f"sfm: {k} never launched")
     # K1: three launches a frame after the bootstrap's one
     _check(launches["fused_l2_top2"] >= 1 + 3 * (n - 2), "sfm: K1 not launched every frame")
+    # the rest of config 3: loop closure on the natural run's trajectory
+    loop = _loop_closure(dev, K_mod, res, frames, K, cfg, gt, extent)
 
     res_s, syncs = _count_syncs(lambda: run(frames))
     print(f"slice sfm: host syncs {syncs} in the run ({syncs / n:.2f} a frame; registered "
@@ -508,7 +536,7 @@ def _slice_sfm(dev, K_mod) -> dict:
     _check(gpu.registered == cpu.registered, "sfm: GPU and CPU registered other frames")
     _check(ate_g < 0.1 * ext_m and ate_c < 0.1 * ext_m, "sfm: 16-frame ATE over the bound")
     _check(diff < 0.02 * ext_m, "sfm: GPU and CPU trajectories differ")
-    return dict(launches=launches, registered=n_reg, landmarks=n_lms, ate=ate,
+    return dict(launches=launches, loop=loop, registered=n_reg, landmarks=n_lms, ate=ate,
                 frame_ms=float(np.median(frame_ms)), frames_per_s=float(np.median(fps)),
                 frames_per_s_runs=fps, dispatch_us=disp, ba_ms=ba_ms,
                 syncs_per_frame=syncs / n, peak_bytes=peak, gpu_vs_cpu_diff=diff)
@@ -623,6 +651,319 @@ def _ba_sparse(dev) -> dict:
     _check(c1 < c0 and math.isfinite(c1), "ba sparse: cost did not go down")
     return dict(initial_cost=c0, final_cost=c1, iterations=it, ms_per_iteration=ms / it,
                 peak_bytes=peak, base_bytes=base)
+
+
+def _near_tie_cells(got, ref, qd, qm, td, tm, ratio: float) -> int:
+    """Cells of two score matrices that differ by more than their rows at an
+    f32 near-tie of the ratio test (|best − r²·second| ≤ 1e-5·second, in
+    float64): 0 when every difference is rounding at a near-tie."""
+    import torch
+
+    bad = 0
+    for i, j in (got != ref).nonzero().tolist():
+        dist = torch.cdist(qd[i].double(), td[j].double()) ** 2
+        dist = torch.where(tm[j][None], dist, torch.full_like(dist, 1e30))
+        two = dist.topk(2, largest=False).values
+        ties = qm[i] & ((two[:, 0] - ratio ** 2 * two[:, 1]).abs() <= 1e-5 * two[:, 1])
+        bad += int(abs(int(got[i, j]) - int(ref[i, j])) > int(ties.sum()))
+    return bad
+
+
+def _widths(dev, measure) -> dict:
+    """K1 / K1b at widths the kernel is not built for (D = 16, 48: zero
+    columns up to 32 and 64) and at its new instance (D = 128, SIFT), and K4
+    at W = 4 (zero words up to 8) and its new instance W = 16 (512-bit),
+    each against its plain version on the card: the same tolerances as at
+    the built widths (K1 distances 1e-5, no 1-NN mismatch off near-ties; K4
+    exact).  Times at 8 pairs."""
+    import torch
+
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
+        fused_hamming_top2, hamming_top2_plain)
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, fused_l2_top2_points, l2_top2_plain, l2_top2_points_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"K1": {}, "K4": {}}
+    B, N = 8, 512
+    for d in (16, 48, 128):
+        q = torch.randn(B, N, d, generator=gen, device=dev)
+        q = q / q.norm(dim=-1, keepdim=True)
+        t = torch.randn(B, N, d, generator=gen, device=dev)
+        t = t / t.norm(dim=-1, keepdim=True)
+        t_mask = torch.rand(B, N, generator=gen, device=dev) > 0.05
+        pts = torch.rand(B, N, 2, generator=gen, device=dev) * 900
+        kd, ki, kp = fused_l2_top2_points(q, t, t_mask, pts)
+        kd1, ki1 = fused_l2_top2(q, t, t_mask)
+        pd, pi, pp = l2_top2_points_plain(q, t, t_mask, pts)
+        torch.cuda.synchronize()
+        err = float(max((kd - pd).abs().max(), (kd1 - pd).abs().max()))
+        tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+        idx_bad = int(((ki[..., 0] != pi[..., 0]) & ~tie).sum())
+        pts_ok = bool(torch.equal(kp, torch.gather(pts, 1, ki[..., :1].long().expand(-1, -1, 2))))
+        same = bool(torch.equal(ki, ki1) and torch.equal(kd, kd1))
+        print(f"widths K1/K1b D = {d} ({B}x{N}x{N}): max|dist err| {err:.3g} (tol 1e-05), "
+              f"1-NN index mismatches off near-ties {idx_bad}, K1b pts exact {pts_ok}, "
+              f"K1 == K1b {same}")
+        _check(err <= 1e-5 and idx_bad == 0 and pts_ok and same, f"K1 at D = {d} disagrees")
+        bound = _bound(4 * B * 2 * N * d + B * N + 16 * B * N, 2 * B * N * N * d,
+                       FP32_FLOPS_PER_S)
+        ms, pms = measure(f"K1 f32 D = {d} x{B}", fused_l2_top2, l2_top2_plain,
+                          (q, t, t_mask), bound)
+        out["K1"][f"D{d}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound)
+    HB, HN = 8, 1024
+    for w in (4, 16):
+        hq, ht, hmask = _binary_descriptors(HB, HN, w, gen, dev)
+        kd, ki = fused_hamming_top2(hq, ht, hmask)
+        pd, pi = hamming_top2_plain(hq, ht, hmask)
+        torch.cuda.synchronize()
+        err = float((kd - pd).abs().max())
+        exact = bool(torch.equal(ki, pi))
+        print(f"widths K4 W = {w} ({HB}x{HN}x{HN}): max|dist err| {err:.3g} (tol 0), "
+              f"both index columns equal {exact}")
+        _check(err == 0.0 and exact, f"K4 at W = {w} disagrees")
+        bound = _bound(4 * HB * 2 * HN * w + HB * HN + 8 * HB * HN * 2, HB * HN * HN * w,
+                       POPC_PER_S)
+        ms, pms = measure(f"K4 W = {w} x{HB}", fused_hamming_top2, hamming_top2_plain,
+                          (hq, ht, hmask), bound, plain_iters=3)
+        out["K4"][f"W{w}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound)
+    return out
+
+
+def _circuit_poses(n: int, period: int, dev):
+    """n world→camera poses driving a flat circle of radius 50 m, one lap
+    every ``period`` poses (the camera yawing with the road): pose i and
+    i + ``period`` stand at the same place — the revisits a loop closure
+    links."""
+    import torch
+
+    from points_matching_tpu_torch.core.types import Pose
+    from points_matching_tpu_torch.geometry.se3 import so3_exp
+
+    ang = 2.0 * math.pi * torch.arange(n, dtype=torch.float64) / period
+    R = so3_exp(torch.stack([torch.zeros_like(ang), ang, torch.zeros_like(ang)], -1))
+    c = torch.stack([50.0 * torch.cos(ang), torch.zeros_like(ang), 50.0 * torch.sin(ang)], -1)
+    t = -(R @ c[..., None])[..., 0]
+    return Pose(R=R.float().to(dev), t=t.float().to(dev))
+
+
+def _drifted_start(g):
+    """The noisy odometry integrated from pose 0 (float64 on the host), on
+    the graph's device: the drifted start a pose graph corrects."""
+    import torch
+
+    from points_matching_tpu_torch.core.types import Pose
+
+    P = g.num_poses
+    ZR, Zt = g.Z.R[:P - 1].double().cpu(), g.Z.t[:P - 1].double().cpu()
+    R, t = [g.poses.R[0].double().cpu()], [g.poses.t[0].double().cpu()]
+    for e in range(P - 1):                     # T_{e+1} = Z_e⁻¹ T_e
+        Ri = ZR[e].T
+        R.append(Ri @ R[-1])
+        t.append(Ri @ (t[-1] - Zt[e]))
+    dev = g.poses.t.device
+    return Pose(R=torch.stack(R).float().to(dev), t=torch.stack(t).float().to(dev))
+
+
+def _pose_graph(dev) -> dict:
+    """``make_odometry_chain`` + ``optimize_pose_graph`` on the card: a
+    circuit driven lap after lap (``_circuit_poses``), odometry noise 0.01,
+    a loop edge at every revisit — every 500 poses (one lap of 99 at P =
+    100) — and a start drifted by the noisy odometry; P = 100 (dense;
+    BASELINE config 3's length), also solved on the CPU, and P = 4,541 (KITTI
+    odometry sequence 00, BASELINE config 4; ``solver="auto"`` takes PCG).
+    The cost and the mean translation error against ground truth must
+    fall."""
+    import torch
+
+    from points_matching_tpu_torch.ba.pose_graph import (
+        make_odometry_chain, optimize_pose_graph, pose_graph_cost)
+
+    out = {}
+    # P = 4,541 twice: PCG's default of 100 steps a solve, reported only (it
+    # stops early: on this graph the cost fell 10× while the mean error rose,
+    # measured on one H100), and 1,000 steps, held (CG needs about the loop spacing in
+    # steps on a chain with a loop every 500 poses)
+    for P, pcg, held in ((100, 100, True), (4541, 100, False), (4541, 1000, True)):
+        period = min(500, P - 1)
+        gt = _circuit_poses(P, period, dev)
+        loops = tuple((i, i + period) for i in range(0, P - period, period))
+        gen = torch.Generator(device=dev).manual_seed(P)
+        g = make_odometry_chain(gt, gen, odom_noise=0.01, loop_edges=loops, loop_weight=20.0)
+        g0 = g.replace(poses=_drifted_start(g))
+        optimize_pose_graph(g0, max_iterations=1, pcg_iterations=pcg)    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g1, st = optimize_pose_graph(g0, pcg_iterations=pcg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        _, syncs = _count_syncs(lambda: optimize_pose_graph(g0, pcg_iterations=pcg))
+        it = int(st.iterations)
+
+        def err(p):
+            return float((p.t - gt.t).norm(dim=-1).mean())
+
+        c0, c1 = float(st.initial_cost), float(st.final_cost)
+        e0, e1 = err(g0.poses), err(g1.poses)
+        solver = "dense" if P <= 384 else f"pcg {pcg} steps"
+        print(f"pose graph P = {P} ({g.num_edges} edges, {len(loops)} loops, {solver}): cost "
+              f"{c0:.6g} -> {c1:.6g} in {it} GN iterations, {ms / it:.3f} ms/iteration (host "
+              f"clock, synchronized), mean translation error {e0:.4f} -> {e1:.4f}; host syncs "
+              f"{syncs}; peak device memory {peak / 2**20:.1f} MiB"
+              + ("" if held else " (reported, not held)"))
+        _check(c1 < c0 and math.isfinite(c1), f"pose graph P = {P}: cost did not fall")
+        _check(e1 < e0 or not held, f"pose graph P = {P}: the error did not fall")
+        entry = dict(poses=P, edges=g.num_edges, solver=solver, held=held, iterations=it,
+                     initial_cost=c0, final_cost=c1, err_before=e0, err_after=e1,
+                     ms_per_iteration=ms / it, host_syncs=syncs, peak_bytes=peak)
+        if P == 100:
+            cpu, cst = optimize_pose_graph(g0.to("cpu"))
+            dR = float((cpu.poses.R - g1.poses.R.cpu()).abs().max())
+            dt = float((cpu.poses.t - g1.poses.t.cpu()).abs().max())
+            c_cpu = float(pose_graph_cost(cpu))
+            print(f"pose graph P = {P}: GPU vs CPU max |dR| {dR:.3g}, |dt| {dt:.3g} (tol "
+                  f"1e-04); iterations {it} vs {int(cst.iterations)}; cost {c1:.6g} vs {c_cpu:.6g}")
+            _check(max(dR, dt) <= 1e-4, "pose graph: GPU and CPU poses differ")
+            entry.update(gpu_vs_cpu_dR=dR, gpu_vs_cpu_dt=dt)
+        out[f"P{P}" if P == 100 else f"P{P}_pcg{pcg}"] = entry
+    return out
+
+
+def _all_pairs(dev, K_mod) -> dict:
+    """BASELINE config 1's all-pairs sweep at its published width
+    (bench.py ``bench_all_pairs``): 1,024 images × 256 keypoints × 64-d, every
+    row valid, descriptors from ``RandomState(3)``, L2-normalised; ratio 0.8;
+    frame 7 planted as frame 900 plus noise 0.01.  The full N² sweep through
+    ``all_pairs_scores`` on the card (kernel K1); a block of 8 query frames ×
+    all 1,024 against the plain version; the planted pair must be each
+    other's best partner."""
+    import torch
+
+    from points_matching_tpu_torch.parallel.all_pairs import (
+        all_pairs_scores, pair_scores_plain)
+
+    n, k, d, ratio = 1024, 256, 64, 0.8
+    twin = 900
+    rng = np.random.RandomState(3)
+    base = rng.randn(n, k, d).astype(np.float32)
+    base[7] = base[twin] + 0.01 * rng.randn(k, d).astype(np.float32)
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    desc = torch.from_numpy(base).to(dev)
+    mask = torch.ones(n, k, dtype=torch.bool, device=dev)
+    all_pairs_scores(desc[:16], mask[:16], ratio)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    K_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = all_pairs_scores(desc, mask, ratio)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = K_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bound_s = n * n * k * k * d / FP32_INSTR_PER_S
+    print(f"all pairs: {n} x {k} x {d} ({n * n} ordered pairs): {sec:.4f} s a sweep, "
+          f"{n * n / sec:.4g} pairs/s (host clock, one synchronize); FMA bound {bound_s:.4f} s "
+          f"= {n * n / bound_s:.4g} pairs/s; K1 launches {launches['fused_l2_top2']}; peak "
+          f"device memory {peak / 2**20:.1f} MiB ({(peak - base_bytes) / 2**20:.1f} MiB above "
+          f"the inputs)")
+    _check(launches["fused_l2_top2"] > 0, "all pairs: K1 never launched")
+    ref = pair_scores_plain(desc[:8], mask[:8], desc, mask, ratio)
+    torch.cuda.synchronize()
+    n_diff = int((scores[:8] != ref).sum())
+    bad = _near_tie_cells(scores[:8], ref, desc[:8], mask[:8], desc, mask, ratio)
+    print(f"all pairs: block of 8 x {n} against the plain version: {n_diff} cells differ, "
+          f"{bad} not explained by f32 near-ties of the ratio test")
+    _check(bad == 0, "all pairs: K1 counts disagree with the plain version")
+    off = scores.clone()
+    off.fill_diagonal_(-1)
+    best7, best_twin = int(off[7].argmax()), int(off[twin].argmax())
+    print(f"all pairs: planted pair 7 <-> {twin}: best partner of 7 is {best7} (score "
+          f"{int(off[7, best7])}), of {twin} is {best_twin}; median off-diagonal score "
+          f"{float(off[off >= 0].float().median()):.1f}")
+    _check(best7 == twin and best_twin == 7, "all pairs: the planted pair was not found")
+    return dict(shape=[n, k, d], seconds=sec, pairs_per_s=n * n / sec, bound_s=bound_s,
+                bound_by="operations", launches=launches["fused_l2_top2"], peak_bytes=peak,
+                block_cells_differing=n_diff)
+
+
+def _loop_closure(dev, K_mod, res, frames, K, cfg, gt, extent) -> dict:
+    """``close_loops`` on the 100-frame out-and-back run (the reference's
+    tests/test_sequence_100.py bounds: ≥ 1 candidate, ≥ 1 verified, ATE of
+    the corrected trajectory < 10 % of the extent); then the same call on
+    the CPU from the same inputs, with the same RANSAC samples (drawn on the
+    card from the card's matches) injected into both."""
+    import torch
+
+    from points_matching_tpu_torch.core.types import Descriptors, Pose
+    from points_matching_tpu_torch.geometry.ransac import sample_index_sets
+    from points_matching_tpu_torch.ops.matching import match_descriptors
+    from points_matching_tpu_torch.pipelines.loop_closure import close_loops
+    from points_matching_tpu_torch.pipelines.sfm import camera_centers
+    from points_matching_tpu_torch.utils.evaluation import absolute_trajectory_error
+
+    n = len(frames)
+    st = res.state
+    num_cams = int(st.num_cams)
+
+    def run(poses, fr, k_, samples=None):
+        return close_loops(poses, num_cams, fr, k_, cfg, seed=0, f_samples=samples)
+
+    run(st.poses, frames, K)                                     # warm-up
+    torch.cuda.synchronize()
+    K_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    corrected, cands = run(st.poses, frames, K)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = K_mod.launch_counts()
+    _, syncs = _count_syncs(lambda: run(st.poses, frames, K))
+    mask = st.cam_mask[:n].cpu()
+    traj = camera_centers(corrected, st.cam_mask)[:n].cpu()
+    ate_before = float(absolute_trajectory_error(res.trajectory[:n].cpu(), gt[:n], mask).rmse)
+    ate = float(absolute_trajectory_error(traj, gt[:n], mask).rmse)
+    n_ver = sum(c.verified for c in cands)
+    print(f"slice sfm: loop candidates {len(cands)}, verified {n_ver}: "
+          + ", ".join(f"({c.i}, {c.j}, score {c.score}, verified {c.verified}, inliers "
+                      f"{c.num_inliers})" for c in cands))
+    print(f"slice sfm: close_loops {ms:.3f} ms (one synchronize at the end), host syncs "
+          f"{syncs}; ATE {ate_before:.4f} -> {ate:.4f} after closure (bound {0.1 * extent:.4f}); "
+          f"launches on the loop path {launches}")
+    _check(len(cands) >= 1 and n_ver >= 1, "loop closure: no verified candidate")
+    _check(ate < 0.1 * extent, f"loop closure: ATE {ate} over the bound")
+    for name in ("fused_l2_top2", "minimal_eight_point", "ransac_score_hypotheses"):
+        _check(launches[name] > 0, f"loop closure: {name} never launched")
+
+    # GPU against CPU with the same samples
+    H = cfg.two_view.ransac.num_hypotheses
+    gen = torch.Generator(device=dev).manual_seed(1)
+    samples = []
+    for c in cands:
+        (xi, di, mi), (xj, dj, mj) = frames[c.i], frames[c.j]
+        m = match_descriptors(Descriptors(data=dj, mask=mj), Descriptors(data=di, mask=mi),
+                              cfg.two_view.matcher)
+        idx = sample_index_sets(gen, m.mask, H, 8).long()
+        nk = xj.shape[0]
+        pj = xj[m.query_idx.long().clamp(0, nk - 1)]
+        pi = xi[m.train_idx.long().clamp(0, nk - 1)]
+        samples.append((pj[idx], pi[idx]))
+    gpu, gc = run(st.poses, frames, K, samples)
+    cpu, cc = run(Pose(R=st.poses.R.cpu(), t=st.poses.t.cpu()),
+                  [tuple(x.cpu() for x in f) for f in frames], K.to("cpu"),
+                  [tuple(x.cpu() for x in s_) for s_ in samples])
+    key = lambda cs: [(c.i, c.j, c.score, c.verified, c.num_inliers) for c in cs]  # noqa: E731
+    dR = float((gpu.R.cpu() - cpu.R).abs().max())
+    dt = float((gpu.t.cpu() - cpu.t).abs().max())
+    print(f"slice sfm: close_loops GPU vs CPU (same samples): candidates (i, j, score, "
+          f"verified, inliers) {key(gc)} vs {key(cc)}; corrected poses max |dR| {dR:.3g}, "
+          f"|dt| {dt:.3g} (tol 1e-03)")
+    _check(key(gc) == key(cc), "loop closure: GPU and CPU candidates differ")
+    _check(max(dR, dt) <= 1e-3, "loop closure: GPU and CPU corrected poses differ")
+    return dict(candidates=key(cands), close_loops_ms=ms, host_syncs=syncs,
+                ate_before=ate_before, ate_after=ate, launches=launches,
+                gpu_vs_cpu_dR=dR, gpu_vs_cpu_dt=dt)
 
 
 def main() -> int:
@@ -869,6 +1210,12 @@ def main() -> int:
     ]
     phase_s["k1sfm"] = time.perf_counter() - t_phase
 
+    # K1 / K1b and K4 at widths other than the SURF and ORB ones: padded
+    # up to a built width, or the new instances (D = 128, W = 16)
+    t_phase = time.perf_counter()
+    report["widths"] = _widths(dev, measure)
+    phase_s["widths"] = time.perf_counter() - t_phase
+
     t_phase = time.perf_counter()
     # -- 4. the slices: the port's main paths -----------------------------------
     from points_matching_tpu_torch.core.config import named_config
@@ -939,7 +1286,9 @@ def main() -> int:
     # -- 5. SfM: BASELINE config 3 (without loop closure), the JAX bench's
     # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
     for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
-                      ("sfm32", lambda: _slice_sfm32(dev, K)), ("ba", lambda: _ba_sparse(dev))):
+                      ("sfm32", lambda: _slice_sfm32(dev, K)), ("ba", lambda: _ba_sparse(dev)),
+                      ("pose_graph", lambda: _pose_graph(dev)),
+                      ("all_pairs", lambda: _all_pairs(dev, K))):
         t_phase = time.perf_counter()
         report[phase] = fn()
         phase_s[phase] = time.perf_counter() - t_phase
@@ -949,11 +1298,18 @@ def main() -> int:
     src = "points_matching_tpu_torch/csrc/"
     pallas = "points_matching_tpu/ops/pallas/"
     report["K1_f32"]["sfm_shapes"] = report["K1_sfm"]
+    report["K1_f32"]["widths"] = report["widths"]["K1"]
+    report["K4"]["widths"] = report["widths"]["K4"]
+    all_pairs = report["all_pairs"]
+    report["K1_f32"]["all_pairs"] = {k: all_pairs[k] for k in (
+        "shape", "seconds", "pairs_per_s", "bound_s", "bound_by", "launches")}
     sfm_launches = report["sfm"].pop("launches")
+    loop_launches = report["sfm"]["loop"].pop("launches")
 
     def launches(name):
         by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
-                       sfm=sfm_launches[name])
+                       sfm=sfm_launches[name], loop=loop_launches[name],
+                       all_pairs=all_pairs["launches"] if name == "fused_l2_top2" else 0)
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -977,7 +1333,8 @@ def main() -> int:
     ]
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")
-    print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba")}))
+    print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba", "pose_graph",
+                                                        "all_pairs")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

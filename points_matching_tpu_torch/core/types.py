@@ -183,7 +183,7 @@ class Pose:
     t: Tensor
 
     @classmethod
-    def identity(cls, batch: tuple = (), dtype=torch.float32, device="cpu") -> "Pose":
+    def identity(cls, batch: tuple = (), dtype=torch.float32, *, device) -> "Pose":
         R = torch.eye(3, dtype=dtype, device=device).expand(*batch, 3, 3).clone()
         return cls(R=R, t=torch.zeros(*batch, 3, dtype=dtype, device=device))
 
@@ -224,7 +224,7 @@ class Landmarks:
         return self.xyz.shape[-2]
 
     @classmethod
-    def empty(cls, capacity: int, dtype=torch.float32, device="cpu") -> "Landmarks":
+    def empty(cls, capacity: int, dtype=torch.float32, *, device) -> "Landmarks":
         return cls(xyz=torch.zeros(capacity, 3, dtype=dtype, device=device),
                    mask=torch.zeros(capacity, dtype=torch.bool, device=device))
 

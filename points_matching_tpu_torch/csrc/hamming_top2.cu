@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel points_matching_tpu/ops/pallas/hamming.py
 // fused_hamming_top2 (_hamming_top2_kernel, _popcount_u32).  Same contract:
-// d(i, j) = Σ_w popcount(q[i, w] ⊕ t[j, w]) over the W = 8 words of a
-// 256-bit descriptor, +1e30 on invalid train rows; per query row the
+// d(i, j) = Σ_w popcount(q[i, w] ⊕ t[j, w]) over the W words of a
+// descriptor, +1e30 on invalid train rows; per query row the
 // smallest and the runner-up distance (f32 counts) and their columns; the
 // [N1, N2] distance matrix never exists in memory.
 //
@@ -15,12 +15,16 @@
 // the train columns [s·N2/S, (s+1)·N2/S).
 //
 // Block: 128 threads, each holding 2 query rows (rows tid and tid + 128 of
-// the tile) in registers, 16 words.  Train rows arrive in a double-buffered
-// ring of 256-row tiles (8 KB) by cp.async while the previous tile is
-// consumed, and are read back as warp broadcasts (every thread of a warp
-// reads the same address): each pair of 16-byte loads feeds 16 XOR +
-// __popc, two distances.  An invalid train row adds kSentinel, which no
-// valid count reaches; its mask byte is loaded one tile ahead.
+// the tile) in registers, 2·W words.  Train rows arrive in a
+// double-buffered ring of 256-row tiles (32·W bytes) by cp.async while the
+// previous tile is consumed, and are read back as warp broadcasts (every
+// thread of a warp reads the same address): each W/4 16-byte loads feed
+// 2·W XOR + __popc, two distances.  An invalid train row adds kSentinel,
+// which no valid count reaches; its mask byte is loaded one tile ahead.
+//
+// W is a template parameter, built for 8 (256-bit ORB/BRIEF) and 16
+// (512-bit); the wrapper pads any narrower width with zero words up to the
+// next of these, which adds no bits to any XOR.
 //
 // Top-2: each thread visits its columns in increasing order with the strict
 // `<` update (PmtTop2::push) from the sentinels (kSentinel, 0).  With S = 1
@@ -48,19 +52,22 @@
 
 namespace {
 
-constexpr int W = 8;                     // 32-bit words per descriptor: 256-bit ORB
 constexpr int kThreads = 128;
 constexpr int kRowsPerThread = 2;
 constexpr int kRowsPerBlock = kThreads * kRowsPerThread;
-constexpr int kTileRows = 256;           // 8 KB of train rows per tile
+constexpr int kTileRows = 256;           // 32·W bytes of train rows per tile
 constexpr int kSentinel = 1 << 30;       // "1e30": above any count (≤ 32·W)
 constexpr int kMergeThreads = 256;
 
-__device__ __forceinline__ int hamming(const uint4& qa, const uint4& qb, const uint4& u,
-                                       const uint4& v) {
-  return __popc(qa.x ^ u.x) + __popc(qa.y ^ u.y) + __popc(qa.z ^ u.z) +
-         __popc(qa.w ^ u.w) + __popc(qb.x ^ v.x) + __popc(qb.y ^ v.y) +
-         __popc(qb.z ^ v.z) + __popc(qb.w ^ v.w);
+// popcount(q ⊕ t) over the W / 4 16-byte chunks of a descriptor, in order
+template <int W>
+__device__ __forceinline__ int hamming(const uint4 (&q)[W / 4], const uint4 (&t)[W / 4]) {
+  int d = 0;
+#pragma unroll
+  for (int c = 0; c < W / 4; ++c)
+    d += __popc(q[c].x ^ t[c].x) + __popc(q[c].y ^ t[c].y) + __popc(q[c].z ^ t[c].z) +
+         __popc(q[c].w ^ t[c].w);
+  return d;
 }
 
 __device__ __forceinline__ void write_result(const PmtTop2<int>& p, size_t o,
@@ -72,6 +79,7 @@ __device__ __forceinline__ void write_result(const PmtTop2<int>& p, size_t o,
   idx[2 * o + 1] = p.i2;
 }
 
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 hamming_top2_kernel(const uint32_t* __restrict__ q,
                     const uint32_t* __restrict__ t,
@@ -113,17 +121,14 @@ hamming_top2_kernel(const uint32_t* __restrict__ q,
   pmt_cp_async_commit();
   int m_cur = valid_bits(0);
 
-  uint4 qa[kRowsPerThread], qc[kRowsPerThread];
+  uint4 qw[kRowsPerThread][W / 4];
 #pragma unroll
   for (int h = 0; h < kRowsPerThread; ++h) {
     const int row = row0 + tid + h * kThreads;
-    qa[h] = qc[h] = make_uint4(0u, 0u, 0u, 0u);
-    if (row < N1) {
-      const uint4* qv = reinterpret_cast<const uint4*>(q) +
-                        (static_cast<size_t>(b) * N1 + row) * (W / 4);
-      qa[h] = qv[0];
-      qc[h] = qv[1];
-    }
+    const uint4* qv = reinterpret_cast<const uint4*>(q) +
+                      (static_cast<size_t>(b) * N1 + row) * (W / 4);
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) qw[h][c] = row < N1 ? qv[c] : make_uint4(0u, 0u, 0u, 0u);
   }
 
   PmtTop2<int> best[kRowsPerThread];
@@ -147,12 +152,13 @@ hamming_top2_kernel(const uint32_t* __restrict__ q,
     const int* bv = bias[buf];
 #pragma unroll 4
     for (int r = 0; r < rows; ++r) {
-      const uint4 u = tv[2 * r];
-      const uint4 v = tv[2 * r + 1];
+      uint4 u[W / 4];
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) u[c] = tv[(W / 4) * r + c];
       const int bb = bv[r];
 #pragma unroll
       for (int h = 0; h < kRowsPerThread; ++h)
-        best[h].push(hamming(qa[h], qc[h], u, v) + bb, base + r);
+        best[h].push(hamming<W>(qw[h], u) + bb, base + r);
     }
     m_cur = m_next;
     __syncthreads();                           // tile consumed before refill
@@ -190,21 +196,29 @@ hamming_top2_merge_kernel(const int4* __restrict__ part, float* __restrict__ dis
 }  // namespace
 
 // q [B, N1, W] u32, t [B, N2, W] u32, t_mask [B, N2] bool →
-// dist [B, N1, 2] f32 counts, idx [B, N1, 2] i32.  W must be 8.  S train
-// splits; with S > 1, part [B, S, N1] int4 is the wrapper's scratch.
+// dist [B, N1, 2] f32 counts, idx [B, N1, 2] i32.  W must be 8 or 16.  S
+// train splits; with S > 1, part [B, S, N1] int4 is the wrapper's scratch.
 // Returns the status of the launches.
 PMT_EXPORT int pmt_hamming_top2(const void* q, const void* t, const void* t_mask,
                                 void* dist, void* idx, void* part, int B, int N1,
                                 int N2, int W_in, int S, void* stream) {
-  if (W_in != W || S < 1 || S > 65535 || B > 65535 || (S > 1 && part == nullptr))
+  if ((W_in != 8 && W_in != 16) || S < 1 || S > 65535 || B > 65535 ||
+      (S > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, S, B);
-  hamming_top2_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
-      static_cast<const uint8_t*>(t_mask), static_cast<float*>(dist),
-      static_cast<int*>(idx), static_cast<int4*>(part), N1, N2);
+  const auto* qu = static_cast<const uint32_t*>(q);
+  const auto* tu = static_cast<const uint32_t*>(t);
+  const auto* mu = static_cast<const uint8_t*>(t_mask);
+  if (W_in == 16)
+    hamming_top2_kernel<16><<<grid, kThreads, 0, st>>>(
+        qu, tu, mu, static_cast<float*>(dist), static_cast<int*>(idx),
+        static_cast<int4*>(part), N1, N2);
+  else
+    hamming_top2_kernel<8><<<grid, kThreads, 0, st>>>(
+        qu, tu, mu, static_cast<float*>(dist), static_cast<int*>(idx),
+        static_cast<int4*>(part), N1, N2);
   if (S > 1) {
     const size_t rows = static_cast<size_t>(B) * N1;
     hamming_top2_merge_kernel<<<static_cast<unsigned>((rows + kMergeThreads - 1) /

@@ -16,8 +16,8 @@
 //
 // Block: 128 threads, SGEMM-style register tiles.  The block's 128 query
 // rows and a double-buffered ring of 64-row train tiles live in shared
-// memory (69 KB at D = 64, 37 KB at D = 32, dynamic; rows padded to D + 4
-// floats); train tiles arrive by
+// memory (133 KB at D = 128, 69 KB at D = 64, 37 KB at D = 32, dynamic;
+// rows padded to D + 4 floats); train tiles arrive by
 // cp.async while the previous tile is consumed, two barriers a tile.  Lane
 // (qg, cg) of warp w holds a 4 × 16 micro-tile: query rows 32w + qg + 8r
 // and tile columns cg + 4c.  The 8 lanes of a quarter-warp share their
@@ -28,7 +28,9 @@
 // alone and the same pair inside a batch give the same bits.  ‖t‖² and ‖q‖²
 // are fp32, from the unrounded rows: four threads per row each sum D/4 k in
 // one chain, then (s0 + s1) + (s2 + s3).  D is a template parameter, built
-// for 32 and 64.
+// for 32, 64 and 128; the wrapper pads any narrower width with zero columns
+// up to the next of these, which changes no distance (a zero column adds 0
+// to ⟨q,t⟩, ‖q‖² and ‖t‖²).
 //
 // Top-2: each thread visits its columns in increasing order with the strict
 // `<` update (PmtTop2::push), starting from the sentinels (1e30, 0); the 4
@@ -63,16 +65,17 @@
 
 namespace {
 
-// Descriptor widths D: 64 (SURF) and 32 (the synthetic SfM sequences).
-// A shared-memory row is padded to D + 4 floats; with D ∈ {32, 64} that is
-// 4 banks mod 32, so the 8 query rows a quarter-warp reads stay in
-// disjoint bank groups.
+// Descriptor widths D: 64 (SURF), 32 (the synthetic SfM sequences) and 128
+// (SIFT).  A shared-memory row is padded to D + 4 floats; with D ∈ {32, 64,
+// 128} that is 4 banks mod 32, so the 8 query rows a quarter-warp reads stay
+// in disjoint bank groups.  At D = 128 a block takes 133 KB of the SM's
+// 227 KB, so an SM holds one block (4 warps).
 constexpr int kThreads = 128;
 constexpr int kRowsPerBlock = kThreads;   // query rows of a block: 32 a warp
 constexpr int kPrepRows = kThreads / 4;   // rows of one ‖·‖² pass
 constexpr int kTileCols = 64;        // train rows of a tile: 4 lane groups × 16
 template <int D>
-constexpr int smem_bytes() {         // 70,656 at D = 64, 37,888 at D = 32
+constexpr int smem_bytes() {         // 136,192 at D = 128, 70,656 at D = 64, 37,888 at D = 32
   return ((kRowsPerBlock + 2 * kTileCols) * (D + 4) + 2 * kTileCols + kRowsPerBlock) * 4;
 }
 constexpr int kMergeThreads = 256;
@@ -317,7 +320,7 @@ void launch(const float* q, const float* t, const uint8_t* t_mask,
 
 // q [B, N1, D] f32, t [B, N2, D] f32, t_mask [B, N2] bool,
 // t_points [B, N2, P] f32 or NULL → dist [B, N1, 2] f32, idx [B, N1, 2] i32,
-// pts [B, N1, P] f32 (when t_points is given).  D must be 32 or 64.  S train
+// pts [B, N1, P] f32 (when t_points is given).  D must be 32, 64 or 128.  S train
 // splits; with S > 1, part [B, S, N1] int4 and q2buf [B, N1] f32 are the
 // wrapper's scratch.  Returns the status of the launches.
 PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
@@ -325,7 +328,7 @@ PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
                            void* pts, void* part, void* q2buf, int B, int N1,
                            int N2, int D_in, int P, int S, int bf16,
                            void* stream) {
-  if ((D_in != 32 && D_in != 64) || S < 1 || S > 65535 || B > 65535 ||
+  if ((D_in != 32 && D_in != 64 && D_in != 128) || S < 1 || S > 65535 || B > 65535 ||
       (S > 1 && (part == nullptr || q2buf == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
@@ -349,7 +352,8 @@ PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
       else launch<kD, false, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
     }
   };
-  if (D_in == 64) go(std::integral_constant<int, 64>{});
+  if (D_in == 128) go(std::integral_constant<int, 128>{});
+  else if (D_in == 64) go(std::integral_constant<int, 64>{});
   else go(std::integral_constant<int, 32>{});
   PMT_RETURN_LAUNCH_STATUS();
 }

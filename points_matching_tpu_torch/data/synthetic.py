@@ -11,7 +11,7 @@ section, in numpy with the same draws.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -166,11 +166,13 @@ def make_sparse_ba_problem(seed: int = 0, num_cameras: int = 64,
 def make_tracked_sequence(num_frames: int, *, device, num_landmarks: int = 300,
                           x_range: Tuple[float, float] = (-4.0, 4.0), yaw_step: float = 0.02,
                           t_step: float = 0.35, noise: float = 0.3, num_features: int = 256,
-                          seed: int = 0):
+                          seed: int = 0, offsets: Optional[Sequence[int]] = None):
     """Synthetic tracked sequence: a 640 × 480 camera (f = 500) sweeping
     sideways (frame i: yaw ``yaw_step``·i, world→camera t = (−``t_step``·i,
     0, 0)) past landmarks uniform in ``x_range`` × (−3, 3) × (6, 14), each
-    tagged with a unit 32-d descriptor; a frame's features are up to
+    tagged with a unit 32-d descriptor (``offsets[i]`` in place of i when
+    given: the out-and-back trajectory of the loop-closure demo); a frame's
+    features are up to
     ``num_features`` visible projections, shuffled, with ``noise`` pixels of
     noise and noisy copies of their descriptors.  Numpy from ``seed``.
 
@@ -190,8 +192,9 @@ def make_tracked_sequence(num_frames: int, *, device, num_landmarks: int = 300,
     desc_gt /= np.linalg.norm(desc_gt, axis=-1, keepdims=True)
     frames, centers = [], []
     for i in range(num_frames):
-        R = so3_exp(torch.tensor([0.0, yaw_step * i, 0.0])).numpy()
-        t = np.asarray([-t_step * i, 0.0, 0.0], np.float32)
+        o = i if offsets is None else offsets[i]
+        R = so3_exp(torch.tensor([0.0, yaw_step * o, 0.0])).numpy()
+        t = np.asarray([-t_step * o, 0.0, 0.0], np.float32)
         centers.append(-(R.T @ t))
         Xc = X @ R.T + t
         uv = Xc[:, :2] / Xc[:, 2:3] * f + np.asarray([w / 2, h / 2])

@@ -107,5 +107,60 @@ def se3_exp(xi: Tensor) -> Tuple[Tensor, Tensor]:
 def se3_log(R: Tensor, t: Tensor) -> Tensor:
     """(R, t) → [..., 6] twist (v, w)."""
     w = so3_log(R)
-    v = torch.linalg.solve(_left_jacobian(w), t[..., None])[..., 0]
+    # solve_ex: the same solve without the error check, which would read
+    # the device on the host
+    v = torch.linalg.solve_ex(_left_jacobian(w), t[..., None])[0][..., 0]
     return torch.cat([v, w], -1)
+
+
+def se3_adjoint(R: Tensor, t: Tensor) -> Tensor:
+    """[..., 6, 6] adjoint of (R, t) in the twists' [v, w] order:
+    T·exp(ξ)·T⁻¹ = exp(Ad(T)·ξ) with Ad(T) = [[R, [t]×R], [0, R]]."""
+    top = torch.cat([R, skew(t) @ R], -1)
+    bottom = torch.cat([torch.zeros_like(R), R], -1)
+    return torch.cat([top, bottom], -2)
+
+
+# θ² below which the left-Jacobian coefficients take their Taylor series:
+# the closed forms cancel to ~ε/θ² relative there (4 terms: < 1e-9 at θ = 0.5)
+_SERIES_T2 = 0.25
+
+
+def _series(t2: Tensor, small: Tensor, exact, coeffs) -> Tensor:
+    """``exact(θ², θ)`` off the ``small`` branch, the series Σ cₖ θ²ᵏ on it
+    (the closed form gets a safe θ = 1 there)."""
+    t2_safe = torch.where(small, torch.ones_like(t2), t2)
+    series = sum(c * t2 ** k for k, c in enumerate(coeffs))
+    return torch.where(small, series, exact(t2_safe, torch.sqrt(t2_safe)))
+
+
+def se3_left_jacobian_inverse(xi: Tensor) -> Tensor:
+    """[..., 6, 6] inverse SE(3) left Jacobian of the twist ξ = (v, w):
+    log(exp(δ)·exp(ξ)) = ξ + J_l⁻¹(ξ)·δ + O(δ²).  In [v, w] order
+    J_l⁻¹ = [[J⁻¹, −J⁻¹QJ⁻¹], [0, J⁻¹]], J⁻¹ = I − W/2 + c·W² the inverse
+    SO(3) left Jacobian (c = (1 − (θ/2)·cot(θ/2))/θ², finite up to θ = π)
+    and Q(v, w) the translation coupling (Barfoot, State Estimation for
+    Robotics, eq. 7.86)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    t2 = (w * w).sum(-1)
+    small = t2 < _SERIES_T2
+    c = _series(t2, small, lambda a, th: (1.0 - 0.5 * th / torch.tan(0.5 * th)) / a,
+                (1 / 12, 1 / 720, 1 / 30240, 1 / 1209600))
+    c1 = _series(t2, small, lambda a, th: (th - torch.sin(th)) / (a * th),
+                 (1 / 6, -1 / 120, 1 / 5040, -1 / 362880))
+    c2 = _series(t2, small, lambda a, th: (a + 2.0 * torch.cos(th) - 2.0) / (2.0 * a * a),
+                 (1 / 24, -1 / 720, 1 / 40320, -1 / 3628800))
+    c3 = _series(t2, small,
+                 lambda a, th: (2.0 * th - 3.0 * torch.sin(th) + th * torch.cos(th))
+                 / (2.0 * a * a * th),
+                 (1 / 120, -1 / 2520, 1 / 120960, -1 / 9979200))
+    W, V = skew(w), skew(v)
+    WV, VW, WW = W @ V, V @ W, W @ W
+    WVW = WV @ W
+    cc = [x[..., None, None] for x in (c, c1, c2, c3)]
+    Q = (0.5 * V + cc[1] * (WV + VW + WVW) + cc[2] * (WW @ V + VW @ W - 3.0 * WVW)
+         + cc[3] * (WVW @ W + W @ WVW))
+    Jinv = _eye_like(W) - 0.5 * W + cc[0] * WW
+    top = torch.cat([Jinv, -(Jinv @ Q @ Jinv)], -1)
+    bottom = torch.cat([torch.zeros_like(W), Jinv], -1)
+    return torch.cat([top, bottom], -2)

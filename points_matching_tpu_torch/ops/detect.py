@@ -180,6 +180,43 @@ def _pad_to(x: Tensor, k: int, value) -> Tensor:
     return x if x.shape[0] >= k else F.pad(x, (0, k - x.shape[0]), value=value)
 
 
+def _top_k_peaks(score_m: Tensor, k: int, nms_radius: int):
+    """The k best cells of the [S, H, W] masked response (``-inf`` off the
+    peaks), best first: (scores, s, y, x), at most k entries (fewer on a
+    small image).  With ``nms_radius`` ≥ 1 (at most one peak per 2×2
+    block) the finite entries are a flat ``torch.topk``'s over all cells,
+    taken in two stages."""
+    S, H, W = score_m.shape
+    if nms_radius >= 1:
+        # radius ≥ 1 NMS leaves at most one distinct peak per 2×2 block:
+        # top-k over block maxima, then recover the winning cell
+        H2, W2 = -(-H // 2), -(-W // 2)
+        p = F.pad(score_m, (0, 2 * W2 - W, 0, 2 * H2 - H), value=-math.inf)
+        bmax = p.reshape(S, H2, 2, W2, 2).amax(dim=(2, 4))             # [S, H2, W2]
+        # exact two-stage top-k: every global top-k element is in its own
+        # scale's top-k (capped at the plane size for small images)
+        k1 = min(k, H2 * W2)
+        ts, ti = torch.topk(bmax.reshape(S, -1), k1)
+        top_scores, sel = torch.topk(ts.reshape(-1), min(k, S * k1))
+        s_idx = sel // k1
+        rem = ti.reshape(-1)[sel]
+        yb, xb = rem // W2, rem % W2
+        pf = p.reshape(-1)
+        Wp = 2 * W2
+        base = s_idx * (2 * H2 * Wp) + (2 * yb) * Wp + 2 * xb
+        cells = torch.stack([pf[base], pf[base + 1], pf[base + Wp],
+                             pf[base + Wp + 1]], -1)                  # [k, 4]
+        la = cells.argmax(-1)                                         # first on ties
+        y_idx = yb * 2 + (la >> 1)
+        x_idx = xb * 2 + (la & 1)
+    else:
+        top_scores, top_idx = torch.topk(score_m.reshape(-1), min(k, score_m.numel()))
+        s_idx = top_idx // (H * W)
+        rem = top_idx % (H * W)
+        y_idx, x_idx = rem // W, rem % W
+    return top_scores, s_idx, y_idx, x_idx
+
+
 def detect_keypoints(image: Tensor, config: DetectorConfig = DetectorConfig()) -> Keypoints:
     """Detect up to ``config.max_keypoints`` keypoints (padded + masked).
 
@@ -215,34 +252,7 @@ def detect_keypoints(image: Tensor, config: DetectorConfig = DetectorConfig()) -
     score_m = torch.where(valid, resp, -math.inf)
 
     k = config.max_keypoints
-    S = score_m.shape[0]
-    if config.nms_radius >= 1:
-        # radius ≥ 1 NMS leaves at most one distinct peak per 2×2 block:
-        # top-k over block maxima, then recover the winning cell
-        H2, W2 = -(-H // 2), -(-W // 2)
-        p = F.pad(score_m, (0, 2 * W2 - W, 0, 2 * H2 - H), value=-math.inf)
-        bmax = p.reshape(S, H2, 2, W2, 2).amax(dim=(2, 4))             # [S, H2, W2]
-        # exact two-stage top-k: every global top-k element is in its own
-        # scale's top-k (capped at the plane size for small images)
-        k1 = min(k, H2 * W2)
-        ts, ti = torch.topk(bmax.reshape(S, -1), k1)
-        top_scores, sel = torch.topk(ts.reshape(-1), min(k, S * k1))
-        s_idx = sel // k1
-        rem = ti.reshape(-1)[sel]
-        yb, xb = rem // W2, rem % W2
-        pf = p.reshape(-1)
-        Wp = 2 * W2
-        base = s_idx * (2 * H2 * Wp) + (2 * yb) * Wp + 2 * xb
-        cells = torch.stack([pf[base], pf[base + 1], pf[base + Wp],
-                             pf[base + Wp + 1]], -1)                  # [k, 4]
-        la = cells.argmax(-1)                                         # first on ties
-        y_idx = yb * 2 + (la >> 1)
-        x_idx = xb * 2 + (la & 1)
-    else:
-        top_scores, top_idx = torch.topk(score_m.reshape(-1), min(k, score_m.numel()))
-        s_idx = top_idx // (H * W)
-        rem = top_idx % (H * W)
-        y_idx, x_idx = rem // W, rem % W
+    top_scores, s_idx, y_idx, x_idx = _top_k_peaks(score_m, k, config.nms_radius)
     top_scores = _pad_to(top_scores, k, -math.inf)
     s_idx, y_idx, x_idx = (_pad_to(v, k, 0) for v in (s_idx, y_idx, x_idx))
 

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -121,6 +121,25 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.pmt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def pad_width(x, built: Tuple[int, ...], what: str):
+    """``x`` [..., n] with zeros appended on its last axis up to the
+    narrowest width in ``built`` that holds n (``x`` itself when n is
+    built).  The matchers' widths pad exactly: a zero column adds 0 to
+    ⟨q,t⟩, ‖q‖² and ‖t‖², a zero word no bits to an XOR.  Above the widest
+    built width this raises: splitting the width is no repair, since a
+    top-2 over summed distances does not merge from per-chunk top-2s."""
+    n = x.shape[-1]
+    width = next((w for w in built if w >= n), None)
+    if width is None:
+        raise ValueError(f"the CUDA kernel is built for {what} in {built}; "
+                         f"{what} = {n} is wider than the widest")
+    if width == n:
+        return x
+    import torch.nn.functional as F
+
+    return F.pad(x, (0, width - n))
 
 
 @functools.lru_cache(maxsize=None)

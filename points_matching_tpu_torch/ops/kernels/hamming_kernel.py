@@ -17,6 +17,9 @@ population counts at 16 per clock per SM).
 Descriptor words are ``torch.int32`` tensors holding the uint32 bits.  The
 wrapper takes a leading pair axis, launches the kernel for CUDA tensors and
 runs the plain PyTorch version (``hamming_top2_plain``) for CPU tensors.
+The kernel is built for W ∈ ``BUILT_WORDS``; on the card the wrapper pads
+any narrower W with zero words up to the next built width, which adds no
+bits, and raises above the widest.
 
 Semantics (distances are small integers, so ties are the normal case):
 both distance columns and both index columns (the lowest column attaining
@@ -37,7 +40,9 @@ from points_matching_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
 _BIG = 1e30
-WORDS = 8   # the one width the kernel is built for: 256-bit ORB descriptors
+# word counts the kernel is built for (8: 256-bit ORB/BRIEF, 16: 512-bit);
+# the wrapper pads narrower ones with zero words
+BUILT_WORDS = (8, 16)
 ROWS_PER_BLOCK = 256    # query rows of a block: kRowsPerBlock in hamming_top2.cu
 MIN_SPLIT_COLS = 16     # train columns a split keeps at least
 
@@ -104,9 +109,8 @@ def fused_hamming_top2(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Te
         raise ValueError(f"unsupported device {q.device}")
     if not all(x.is_contiguous() for x in (q, t, t_mask)):
         raise ValueError("the CUDA kernel needs contiguous inputs")
-    if q.shape[2] != WORDS:
-        raise ValueError(f"the CUDA kernel is built for W = {WORDS} words (256-bit ORB), "
-                         f"got {q.shape[2]}")
+    # zero words up to the next built width (a fresh, aligned copy)
+    q, t = (_build.pad_width(x, BUILT_WORDS, "W") for x in (q, t))
     if q.data_ptr() % 16 or t.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs 16-byte aligned q and t")
     lib = _build.library()
@@ -123,7 +127,7 @@ def fused_hamming_top2(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Te
         rc = lib.pmt_hamming_top2(
             q.data_ptr(), t.data_ptr(), t_mask.data_ptr(), dist.data_ptr(),
             idx.data_ptr(), None if part is None else part.data_ptr(),
-            B, N1, N2, WORDS, S, torch.cuda.current_stream().cuda_stream)
+            B, N1, N2, q.shape[2], S, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_hamming_top2")
     fused_hamming_top2.launches += 1
     return dist, idx

@@ -15,6 +15,9 @@ issue (2·N1·N2·D flops per pair against (N1+N2)·D·4 bytes).
 
 Each wrapper takes a leading pair axis, launches the kernel for CUDA
 tensors, and runs the plain PyTorch version (``*_plain``) for CPU tensors.
+The kernel is built for D ∈ ``BUILT_DIMS``; on the card the wrapper pads
+any narrower D with zero columns up to the next built width, which changes
+no distance and no index, and raises above the widest.
 The plain version is the same function written with ``torch.matmul`` and
 two argmin passes; the tests hold it against the JAX kernel in interpret
 mode, and ``chip_smoke.py`` holds the kernel against it on the card.
@@ -31,7 +34,9 @@ Tensor = torch.Tensor
 _BIG = 1e30
 ROWS_PER_BLOCK = 128    # query rows of a block: kRowsPerBlock in matching_top2.cu
 MIN_SPLIT_COLS = 8      # train columns a split keeps at least
-BUILT_DIMS = (32, 64)   # descriptor widths the CUDA kernel is instantiated for
+# descriptor widths the CUDA kernel is instantiated for (32: the synthetic
+# SfM sequences, 64: SURF, 128: SIFT); the wrapper pads narrower ones
+BUILT_DIMS = (32, 64, 128)
 
 
 def _check_inputs(q: Tensor, t: Tensor, t_mask: Tensor,
@@ -93,9 +98,8 @@ def _launch(q, t, t_mask, t_points, compute_dtype):
     for x in (q, t, t_mask, t_points):
         if x is not None and not x.is_contiguous():
             raise ValueError("the CUDA kernel needs contiguous inputs")
-    if q.shape[2] not in BUILT_DIMS:
-        raise ValueError(f"the CUDA kernel is built for D in {BUILT_DIMS} (64: SURF; "
-                         f"32: the synthetic SfM sequences), got {q.shape[2]}")
+    # zero columns up to the next built width (a fresh, aligned copy)
+    q, t = (_build.pad_width(x, BUILT_DIMS, "D") for x in (q, t))
     if q.data_ptr() % 16 or t.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs 16-byte aligned q and t")
     lib = _build.library()

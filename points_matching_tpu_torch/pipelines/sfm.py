@@ -86,8 +86,8 @@ class SfMState:
         return dataclasses.replace(self, **kw)
 
 
-def init_sfm_state(config: SfMConfig, num_features: int, desc_dim: int,
-                   device="cpu") -> SfMState:
+def init_sfm_state(config: SfMConfig, num_features: int, desc_dim: int, *,
+                   device) -> SfMState:
     C, L, O = config.max_cameras, config.max_landmarks, config.max_observations
     f32, i32 = torch.float32, torch.int32
 

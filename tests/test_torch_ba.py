@@ -283,7 +283,7 @@ def test_sparse_bundle_adjust_keeps_fixed_rows(request, problem):
     js = _jsparse_state(sparse)
     jo, jst = jax.jit(jsp.bundle_adjust_sparse, static_argnames="config")(
         js, jK, config=JBAConfig(**cfg))
-    ts = sparse_ba_state_from_numpy(js)
+    ts = sparse_ba_state_from_numpy(js, device="cpu")
     to, tst = tsp.bundle_adjust_sparse(ts, tK, BAConfig(**cfg))
     c0, c1 = float(tst.initial_cost), float(tst.final_cost)
     np.testing.assert_allclose(c0, float(jst.initial_cost), rtol=1e-5)
@@ -329,7 +329,7 @@ def test_append_positions_and_drop_scatter(capacity, cursor):
 
 
 def test_ba_state_dataclasses_replace():
-    s = tsp.make_sparse_ba_state(Pose.identity((2,)), torch.zeros(3, 3),
+    s = tsp.make_sparse_ba_state(Pose.identity((2,), device="cpu"), torch.zeros(3, 3),
                                  torch.zeros(4), torch.zeros(4), torch.zeros(4, 2),
                                  torch.ones(4, dtype=torch.bool))
     assert s.cam_fixed.tolist() == [True, False] and not s.lm_fixed.any()
@@ -351,7 +351,7 @@ def test_port_generators_give_solvable_problems():
     assert n_obs > 100 and float(stats.final_cost) < 0.5 * n_obs < float(stats.initial_cost)
     from points_matching_tpu_torch.core.types import Landmarks, Observations
 
-    lms = Landmarks.empty(8)
+    lms = Landmarks.empty(8, device="cpu")
     obs = Observations(*(torch.zeros(5, dtype=d) for d in (torch.int32, torch.int32)),
                        uv=torch.zeros(5, 2), mask=torch.zeros(5, dtype=torch.bool))
     assert lms.capacity == 8 and not lms.mask.any() and obs.capacity == 5

@@ -240,8 +240,9 @@ def test_wrappers_raise_on_bad_inputs(dev):
     m = torch.ones(1, 10, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
         fused_l2_top2(q.transpose(1, 2).contiguous().transpose(1, 2), q, m)  # strided
-    with pytest.raises(ValueError):
-        fused_l2_top2(torch.randn(1, 10, 48, device=dev), torch.randn(1, 10, 48, device=dev), m)
+    with pytest.raises(ValueError):                     # wider than the widest built D
+        fused_l2_top2(torch.randn(1, 10, 160, device=dev), torch.randn(1, 10, 160, device=dev),
+                      m)
     with pytest.raises(TypeError):
         fused_l2_top2(q.double(), q.double(), m)
     with pytest.raises(ValueError):
@@ -321,8 +322,8 @@ def test_hamming_wrapper_raises_on_bad_inputs(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     q = _words(gen, 1, 10, 8, dev=dev)
     m = torch.ones(1, 10, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):                     # W = 4: not the kernel's width
-        fused_hamming_top2(q[..., :4].contiguous(), q[..., :4].contiguous(), m)
+    with pytest.raises(ValueError):                     # wider than the widest built W
+        fused_hamming_top2(_words(gen, 1, 10, 20, dev=dev), _words(gen, 1, 10, 20, dev=dev), m)
     with pytest.raises(ValueError):                     # strided
         fused_hamming_top2(_words(gen, 1, 10, 16, dev=dev)[..., ::2], q, m)
     with pytest.raises(TypeError):
@@ -482,3 +483,154 @@ def test_incremental_sfm_gpu_matches_cpu(dev):
         assert float(absolute_trajectory_error(traj, gt).rmse) < 0.05
     s, R, t = umeyama_alignment(tg, tc)
     assert float((s * tg @ R.T + t - tc).norm(dim=-1).max()) < 0.02 * 3.15
+
+
+# 16, 48, 100: padded with zero columns to 32, 64, 128; 128: its own instance
+@pytest.mark.parametrize("d", [16, 48, 100, 128])
+def test_l2_top2_kernel_any_width(dev, d):
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, fused_l2_top2_points, l2_top2_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, t = _unit(gen, 3, 300, d, dev=dev), _unit(gen, 3, 500, d, dev=dev)
+    t_mask = torch.rand(3, 500, generator=gen, device=dev) > 0.1
+    before = fused_l2_top2.launches
+    kd, ki = fused_l2_top2(q, t, t_mask)
+    assert fused_l2_top2.launches == before + 1
+    pd, pi = l2_top2_plain(q, t, t_mask)
+    torch.cuda.synchronize()
+    # the tolerances of the built widths
+    torch.testing.assert_close(kd, pd, atol=1e-5, rtol=0)
+    tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+    assert bool(((ki[..., 0] == pi[..., 0]) | tie).all())
+    pts = torch.rand(3, 500, 2, generator=gen, device=dev) * 900
+    kd2, ki2, kp = fused_l2_top2_points(q, t, t_mask, pts)
+    assert torch.equal(ki2, ki) and torch.equal(kd2, kd)
+    assert torch.equal(kp, torch.gather(pts, 1, ki[..., :1].long().expand(-1, -1, 2)))
+
+
+# 4, 12: padded with zero words to 8, 16; 16: its own instance (512-bit)
+@pytest.mark.parametrize("w", [4, 12, 16])
+def test_hamming_top2_kernel_any_width(dev, w):
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
+
+    gen = torch.Generator(device=dev).manual_seed(w)
+    t = _words(gen, 2, 700, w, dev=dev)
+    q = _words(gen, 2, 300, w, dev=dev)
+    q[:, :100] = t[:, :100]                             # exact duplicates
+    q[:, 100:200] = t[:, :100] ^ 5                      # two flipped bits
+    t_mask = torch.rand(2, 700, generator=gen, device=dev) > 0.05
+    kd, ki = fused_hamming_top2(q, t, t_mask)
+    _check_hamming(q, t, t_mask, kd, ki)
+
+
+def test_all_pairs_scores_kernel_matches_plain(dev):
+    """64 frames × 256 × 64-d through K1 against the plain version on the
+    card: equal counts but at f32 near-ties of the ratio test."""
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.parallel.all_pairs import (
+        all_pairs_scores, pair_scores_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    desc = _unit(gen, 64, 256, 64, dev=dev)
+    desc[5] = desc[40] + 0.02 * torch.randn(256, 64, generator=gen, device=dev)
+    desc = desc / desc.norm(dim=-1, keepdim=True)
+    mask = torch.rand(64, 256, generator=gen, device=dev) > 0.1
+    kernels.reset_launch_counts()
+    got = all_pairs_scores(desc, mask)
+    assert kernels.launch_counts()["fused_l2_top2"] == 64      # one a train frame
+    ref = pair_scores_plain(desc, mask, desc, mask)
+    torch.cuda.synchronize()
+    diff = (got != ref).nonzero().tolist()
+    for i, j in diff:
+        dist = torch.cdist(desc[i].double(), desc[j].double()) ** 2
+        dist = torch.where(mask[j][None], dist, torch.full_like(dist, 1e30))
+        two = dist.topk(2, largest=False).values
+        ties = mask[i] & ((two[:, 0] - 0.64 * two[:, 1]).abs() <= 1e-5 * two[:, 1])
+        assert abs(int(got[i, j]) - int(ref[i, j])) <= int(ties.sum()), (i, j)
+    assert len(diff) <= 4, diff
+    off = got.clone()
+    off.fill_diagonal_(-1)
+    assert int(off[5].argmax()) == 40 and int(off[40].argmax()) == 5
+
+
+def test_close_loops_gpu_matches_cpu(dev):
+    """tests/test_loop_closure.py's revisit sequence (the port's generator
+    with its settings), drifted: close_loops on the card against the same
+    call on the CPU with the same injected RANSAC samples."""
+    from points_matching_tpu_torch.core.config import (
+        MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig)
+    from points_matching_tpu_torch.core.types import Descriptors, Pose
+    from points_matching_tpu_torch.data.synthetic import make_tracked_sequence
+    from points_matching_tpu_torch.geometry.ransac import sample_index_sets
+    from points_matching_tpu_torch.geometry.se3 import se3_exp
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.ops.matching import match_descriptors
+    from points_matching_tpu_torch.pipelines.loop_closure import close_loops
+
+    offs = [0, 1, 2, 3, 4, 5, 4, 3, 2, 1, 0, -1]
+    frames, K, _ = make_tracked_sequence(12, device="cpu", num_landmarks=400,
+                                         x_range=(-14.0, 14.0), yaw_step=0.0, t_step=1.2,
+                                         offsets=offs)
+    cfg = SfMConfig(
+        two_view=TwoViewConfig(matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.8),
+                               ransac=RansacConfig(num_hypotheses=256, inlier_threshold=2.0)),
+        max_cameras=16, max_landmarks=1024, max_observations=8192, pnp_min_inliers=12)
+    gen = torch.Generator().manual_seed(3)
+    drift = torch.cumsum(0.02 * torch.randn(12, 6, generator=gen), 0)
+    drift[0] = 0.0
+    Rd, td = se3_exp(drift)
+    t_gt = torch.tensor([[-1.2 * o, 0.0, 0.0] for o in offs])
+    poses = Pose(R=Rd, t=(Rd @ t_gt[..., None])[..., 0] + td)
+    gframes = [tuple(x.to(dev) for x in f) for f in frames]
+    gposes = Pose(R=poses.R.to(dev), t=poses.t.to(dev))
+    kernels.reset_launch_counts()
+    _, cands = close_loops(gposes, 12, gframes, K, cfg)
+    counts = kernels.launch_counts()
+    assert cands and any(c.verified for c in cands)
+    assert counts["fused_l2_top2"] > 12 and counts["minimal_eight_point"] == len(cands)
+    assert counts["ransac_score_hypotheses"] == len(cands)
+    sgen = torch.Generator(device=dev).manual_seed(1)
+    samples = []
+    for c in cands:
+        (xi, di, mi), (xj, dj, mj) = gframes[c.i], gframes[c.j]
+        m = match_descriptors(Descriptors(data=dj, mask=mj), Descriptors(data=di, mask=mi),
+                              cfg.two_view.matcher)
+        idx = sample_index_sets(sgen, m.mask, 256, 8).long()
+        pj, pi = xj[m.query_idx.long()], xi[m.train_idx.long()]
+        samples.append((pj[idx], pi[idx]))
+    gpu, gc = close_loops(gposes, 12, gframes, K, cfg, f_samples=samples)
+    cpu, cc = close_loops(poses, 12, frames, K, cfg,
+                          f_samples=[tuple(x.cpu() for x in s_) for s_ in samples])
+    assert gc == cc
+    assert gpu.t.is_cuda
+    torch.testing.assert_close(gpu.R.cpu(), cpu.R, atol=1e-3, rtol=0)
+    torch.testing.assert_close(gpu.t.cpu(), cpu.t, atol=1e-3, rtol=0)
+    err = lambda p: float((p.t.cpu() - t_gt).norm(dim=-1).mean())  # noqa: E731
+    assert err(gpu) < err(poses)
+
+
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_pose_graph_gpu_matches_cpu(dev, solver):
+    """A 60-pose chain with loop edges, solved to convergence on the card
+    and on the CPU: the same optimum."""
+    from points_matching_tpu_torch.ba.pose_graph import make_odometry_chain, optimize_pose_graph
+    from points_matching_tpu_torch.core.types import Pose
+    from points_matching_tpu_torch.geometry.se3 import so3_exp
+
+    n = 60
+    ang = torch.linspace(0.0, 1.5 * 3.14159, n)
+    R = so3_exp(torch.stack([torch.zeros_like(ang), ang, torch.zeros_like(ang)], -1))
+    t = torch.stack([2.0 * torch.cos(ang), torch.zeros_like(ang), 2.0 * torch.sin(ang)], -1)
+    noise = 0.01 * torch.randn(n - 1, 6, generator=torch.Generator().manual_seed(2))
+    g = make_odometry_chain(Pose(R=R, t=t), noise=noise, loop_edges=((0, n - 1), (10, 40)),
+                            loop_weight=20.0)
+    drifted = Pose(R=g.poses.R @ so3_exp(0.05 * torch.randn(n, 3)), t=g.poses.t + 0.1)
+    drifted.R[0], drifted.t[0] = R[0], t[0]
+    g0 = g.replace(poses=drifted)
+    gg, gs = optimize_pose_graph(g0.to(dev), solver=solver)
+    cg, cs = optimize_pose_graph(g0, solver=solver)
+    assert gg.poses.t.is_cuda and float(gs.final_cost) < 0.5 * float(gs.initial_cost)
+    # both solve in float64 (ba/pose_graph.py): 1e-4 on the f32 poses
+    torch.testing.assert_close(gg.poses.R.cpu(), cg.poses.R, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gg.poses.t.cpu(), cg.poses.t, atol=1e-4, rtol=0)

@@ -104,7 +104,7 @@ def test_detect_keypoints_matches_jax_as_sets(image):
 def test_surf_describe_on_same_keypoints(image):
     jk = j_detect(jnp.asarray(image), _detector_config())
     jd = j_describe(jnp.asarray(image), jk)
-    td = surf_describe(torch.from_numpy(image), keypoints_from_numpy(jk))
+    td = surf_describe(torch.from_numpy(image), keypoints_from_numpy(jk, device="cpu"))
     np.testing.assert_array_equal(td.mask.numpy(), np.asarray(jd.mask))
     # unit-norm 64-d rows from f32 sums of weighted pixel differences
     np.testing.assert_allclose(td.data.numpy(), np.asarray(jd.data), atol=1e-4)
@@ -118,3 +118,32 @@ def test_unknown_detector_and_descriptor_kinds_raise(image):
     kps = detect_keypoints(img, DetectorConfig(max_keypoints=16))
     with pytest.raises(ValueError):
         extract_descriptors(img, kps, DescriptorConfig(kind="sift"))
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (40, 24)])
+def test_detector_top_k_on_small_images(shape):
+    """Images below the reference's minimum at 512 keypoints (it crashes
+    there: its per-scale top-k exceeds the plane): the port caps the
+    per-scale top-k at the plane size, and its two-stage top-k gives a
+    flat ``torch.topk``'s cells over the same masked responses."""
+    from points_matching_tpu_torch.ops import detect as tdet
+
+    rng = np.random.RandomState(sum(shape))
+    img = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32))
+    cfg = DetectorConfig(kind="hessian", threshold=0.0, max_keypoints=512, border=3)
+    kp = detect_keypoints(img, cfg)
+    assert kp.capacity == 512 and kp.xy.shape == (512, 2)
+    n = int(kp.mask.sum())
+    assert 0 < n < 512 and bool(kp.mask[:n].all())
+    # the same peak map the detector builds, at random responses
+    resp = torch.from_numpy(rng.rand(4, *shape).astype(np.float32))
+    peak = tdet._spatial_nms(resp, cfg.nms_radius) & tdet._scale_nms(resp)
+    score_m = torch.where(peak, resp, -torch.inf)
+    scores, s_idx, y_idx, x_idx = tdet._top_k_peaks(score_m, 512, cfg.nms_radius)
+    flat_s, flat_i = torch.topk(score_m.reshape(-1), 512)
+    finite = torch.isfinite(flat_s)
+    m = int(finite.sum())
+    assert 0 < m < 512 and int(torch.isfinite(scores).sum()) == m
+    assert torch.equal(scores[:m], flat_s[:m])
+    H, W = shape
+    assert torch.equal(s_idx[:m] * H * W + y_idx[:m] * W + x_idx[:m], flat_i[:m])

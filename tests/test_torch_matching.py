@@ -144,7 +144,8 @@ def test_match_descriptors_matches_jax(kw, compact):
     jd2 = JDescriptors(data=jnp.asarray(t), mask=jnp.asarray(tmask))
     ref = jm.match_descriptors(jd1, jd2, JMatcherConfig(compact=compact,
                                                         backend="xla", **kw))
-    out = tm.match_descriptors(descriptors_from_numpy(jd1), descriptors_from_numpy(jd2),
+    out = tm.match_descriptors(descriptors_from_numpy(jd1, device="cpu"),
+                               descriptors_from_numpy(jd2, device="cpu"),
                                MatcherConfig(compact=compact, backend="auto", **kw))
     np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
     np.testing.assert_array_equal(out.query_idx.numpy(), np.asarray(ref.query_idx))
@@ -156,14 +157,14 @@ def test_match_descriptors_matches_jax(kw, compact):
     np.testing.assert_allclose([float(tmin), float(tmax)], [float(jmin), float(jmax)],
                                atol=1e-5)
     # the same statistic on the JAX matches carried across
-    cmin, cmax = tm.match_stats(matches_from_numpy(ref))
+    cmin, cmax = tm.match_stats(matches_from_numpy(ref, device="cpu"))
     np.testing.assert_array_equal([float(cmin), float(cmax)], [float(jmin), float(jmax)])
 
 
 def test_match_descriptors_xla_backend_matches_fused():
     q, qm, t, tmask = _desc_pair(seed=8)
-    d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm))
-    d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask))
+    d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm), device="cpu")
+    d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask), device="cpu")
     a = tm.match_descriptors(d1, d2, MatcherConfig(backend="xla"))
     b = tm.match_descriptors(d1, d2, MatcherConfig(backend="auto"))
     np.testing.assert_array_equal(a.mask.numpy(), b.mask.numpy())
@@ -175,8 +176,8 @@ def test_match_descriptors_xla_backend_matches_fused():
 def test_match_descriptors_points_invariant(filt):
     q, qm, t, tmask = _desc_pair(seed=9)
     pts = np.random.RandomState(9).uniform(0, 640, (len(t), 2)).astype(np.float32)
-    d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm))
-    d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask))
+    d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm), device="cpu")
+    d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask), device="cpu")
     cfg = MatcherConfig(filter=filt, ratio=0.9, threshold=0.6, compact=False)
     m, got = tm.match_descriptors_points(d1, d2, _t(pts), cfg)
     ref = tm.match_descriptors(d1, d2, cfg)
@@ -190,7 +191,47 @@ def test_match_descriptors_points_invariant(filt):
 def test_unknown_metric_raises(backend):
     # the Hamming metric is tested in tests/test_torch_orb.py
     q, qm, t, tmask = _desc_pair(seed=10)
-    d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm))
-    d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask))
+    d1 = descriptors_from_numpy(JDescriptors(data=q, mask=qm), device="cpu")
+    d2 = descriptors_from_numpy(JDescriptors(data=t, mask=tmask), device="cpu")
     with pytest.raises(ValueError):
         tm.match_descriptors(d1, d2, MatcherConfig(metric="cosine", backend=backend))
+
+
+@pytest.mark.parametrize("width", [16, 48, 100])
+def test_l2_width_padding_is_exact(width):
+    """On the card K1/K1b pad D to the next built width with zero columns;
+    the plain version on the padded input gives the original's indices and
+    its distances to f32 rounding (a zero column adds exact zeros, but the
+    GEMM may sum in another order at another width)."""
+    from points_matching_tpu_torch.ops.kernels import _build
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        BUILT_DIMS, l2_top2_plain, l2_top2_points_plain)
+
+    rng = np.random.RandomState(width)
+    q = _t(np.stack([_unit_rows(rng, 90, width) for _ in range(2)]))
+    t = _t(np.stack([_unit_rows(rng, 70, width) for _ in range(2)]))
+    t_mask = _t(rng.rand(2, 70) > 0.1)
+    qp, tp = (_build.pad_width(x, BUILT_DIMS, "D") for x in (q, t))
+    assert qp.shape[-1] == next(w for w in BUILT_DIMS if w >= width)
+    assert torch.equal(qp[..., :width], q) and not qp[..., width:].any()
+    d0, i0 = l2_top2_plain(q, t, t_mask)
+    d1, i1 = l2_top2_plain(qp, tp, t_mask)
+    torch.testing.assert_close(d1, d0, atol=1e-6, rtol=0)
+    tie = (d0[..., 0] - d0[..., 1]).abs() < 1e-5
+    assert bool(((i0 == i1).all(-1) | tie).all())
+    pts = _t(rng.rand(2, 70, 2).astype(np.float32))
+    _, ip, pp = l2_top2_points_plain(qp, tp, t_mask, pts)
+    assert torch.equal(pp, torch.gather(pts, 1, ip[..., :1].long().expand(-1, -1, 2)))
+
+
+def test_width_padding_raises_above_the_widest():
+    from points_matching_tpu_torch.ops.kernels import _build
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import BUILT_WORDS
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import BUILT_DIMS
+
+    x = torch.zeros(1, 4, 64)
+    assert _build.pad_width(x, BUILT_DIMS, "D") is x           # a built width: no copy
+    with pytest.raises(ValueError, match="D = 160"):
+        _build.pad_width(torch.zeros(1, 4, 160), BUILT_DIMS, "D")
+    with pytest.raises(ValueError, match="W = 20"):
+        _build.pad_width(torch.zeros(1, 4, 20, dtype=torch.int32), BUILT_WORDS, "W")

@@ -145,7 +145,7 @@ def test_orb_describe_on_same_keypoints(images, jcfg, name):
     img = images[name]
     jk = j_detect(jnp.asarray(img), jcfg)
     jd = j_orb(jnp.asarray(img), jk)
-    td = tdesc.extract_descriptors(torch.from_numpy(img), keypoints_from_numpy(jk),
+    td = tdesc.extract_descriptors(torch.from_numpy(img), keypoints_from_numpy(jk, device="cpu"),
                                    DescriptorConfig(kind="orb"))
     assert td.binary and td.data.dtype == torch.int32 and td.data.shape == jd.data.shape
     np.testing.assert_array_equal(td.mask.numpy(), np.asarray(jd.mask))
@@ -280,12 +280,12 @@ def test_hamming_distance_matrix_and_popcount_match_jax():
 def test_binary_descriptors_keep_every_bit():
     words = np.array([[0xFFFFFFFF, 0x80000000, 1, 0]], np.uint32)
     d = descriptors_from_numpy(JDescriptors(data=jnp.asarray(words), mask=jnp.ones(1, bool),
-                                            binary=True))
+                                            binary=True), device="cpu")
     assert d.binary and d.data.dtype == torch.int32
     np.testing.assert_array_equal(d.data.numpy().view(np.uint32), words)
     with pytest.raises(TypeError):
         descriptors_from_numpy(JDescriptors(data=words.astype(np.float32),
-                                            mask=np.ones(1, bool), binary=True))
+                                            mask=np.ones(1, bool), binary=True), device="cpu")
 
 
 def _binary_pair(seed=7, n=120):
@@ -317,7 +317,8 @@ def test_match_descriptors_hamming_matches_jax(kw, compact, backend):
     jd2 = JDescriptors(data=jnp.asarray(t), mask=jnp.asarray(tmask), binary=True)
     ref = jm.match_descriptors(jd1, jd2, jc.MatcherConfig(metric="hamming", compact=compact,
                                                           backend="xla", **kw))
-    out = tm.match_descriptors(descriptors_from_numpy(jd1), descriptors_from_numpy(jd2),
+    out = tm.match_descriptors(descriptors_from_numpy(jd1, device="cpu"),
+                               descriptors_from_numpy(jd2, device="cpu"),
                                MatcherConfig(metric="hamming", compact=compact,
                                              backend=backend, **kw))
     assert 10 < int(out.mask.sum()) or kw["filter"] == "midpoint"
@@ -388,3 +389,26 @@ def test_pack_bits_matches_numpy():
     assert words.dtype == torch.int32
     ref = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
     np.testing.assert_array_equal(words.numpy().view(np.uint32), ref)
+
+
+@pytest.mark.parametrize("words", [4, 12])
+def test_hamming_width_padding_is_exact(words):
+    """On the card K4 pads W to the next built width with zero words, which
+    add no bits: the plain version on the padded input equals it on the
+    original, distances and both index columns."""
+    from points_matching_tpu_torch.ops.kernels import _build
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
+        BUILT_WORDS, hamming_top2_plain)
+
+    rng = np.random.RandomState(words)
+    t = rng.randint(0, 2**32, (2, 60, words), dtype=np.uint64).astype(np.uint32)
+    q = rng.randint(0, 2**32, (2, 50, words), dtype=np.uint64).astype(np.uint32)
+    q[:, :20] = t[:, :20] ^ np.uint32(6)                # near-duplicates
+    qt, tt = (torch.from_numpy(x.view(np.int32)) for x in (q, t))
+    t_mask = torch.from_numpy(rng.rand(2, 60) > 0.1)
+    qp, tp = (_build.pad_width(x, BUILT_WORDS, "W") for x in (qt, tt))
+    assert qp.shape[-1] == next(w for w in BUILT_WORDS if w >= words)
+    assert torch.equal(qp[..., :words], qt) and not qp[..., words:].any()
+    d0, i0 = hamming_top2_plain(qt, tt, t_mask)
+    d1, i1 = hamming_top2_plain(qp, tp, t_mask)
+    assert torch.equal(d0, d1) and torch.equal(i0, i1)

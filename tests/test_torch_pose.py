@@ -235,7 +235,7 @@ def test_intrinsics_and_pose_types(scene):
     from points_matching_tpu_torch.core.convert import intrinsics_from_numpy, pose_from_numpy
 
     Kj = JK.from_matrix(jnp.asarray(scene["K"]))
-    Kt = intrinsics_from_numpy(scene["K"])
+    Kt = intrinsics_from_numpy(scene["K"], device="cpu")
     np.testing.assert_array_equal(Kt.matrix().numpy(), np.asarray(Kj.matrix()))
     xy = scene["p1"]
     np.testing.assert_allclose(Kt.normalize_points(_t(xy)).numpy(),
@@ -245,7 +245,7 @@ def test_intrinsics_and_pose_types(scene):
                                rtol=1e-6, atol=1e-3)                  # pixels ~ 1e2
     a = JPose(R=jnp.asarray(scene["R"]), t=jnp.asarray(scene["t"]))
     b = JPose(R=jnp.asarray(_rot([0.1, 0.2, -0.3])), t=jnp.asarray([1.0, -2.0, 0.5]))
-    ta, tb = pose_from_numpy(a), pose_from_numpy(b)
+    ta, tb = pose_from_numpy(a, device="cpu"), pose_from_numpy(b, device="cpu")
     # compositions of unit rotations and O(1) translations: 1e-6 absolute
     for got, want in ((ta.compose(tb), a.compose(b)), (ta.inverse(), a.inverse())):
         np.testing.assert_allclose(got.R.numpy(), np.asarray(want.R), atol=1e-6)
@@ -253,7 +253,7 @@ def test_intrinsics_and_pose_types(scene):
     np.testing.assert_allclose(ta.transform(_t(X)).numpy(),
                                np.asarray(a.transform(jnp.asarray(X))), atol=1e-5)
     np.testing.assert_array_equal(ta.matrix34().numpy(), np.asarray(a.matrix34()))
-    eye = Pose.identity((3,))
+    eye = Pose.identity((3,), device="cpu")
     assert eye.R.shape == (3, 3, 3) and not eye.t.any()
 
 

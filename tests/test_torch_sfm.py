@@ -46,7 +46,7 @@ def seq():
     jcfg = _sfm_config()
     tcfg = config_from_dict(dataclasses.asdict(jcfg), SfMConfig)
     tframes = [tuple(_t(a) for a in f) for f in frames]
-    return frames, K, np.asarray(gt), jcfg, tframes, intrinsics_from_numpy(K), tcfg
+    return frames, K, np.asarray(gt), jcfg, tframes, intrinsics_from_numpy(K, device="cpu"), tcfg
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def bootstrapped(seq):
     H = jcfg.two_view.ransac.num_hypotheses
     idx = np.stack([np.asarray(_index_sets(k, m.mask, H, 8)) for k in
                     jax.random.split(k0, jcfg.bootstrap_candidates)])
-    tstate, tst = tsfm.bootstrap_two_view(tsfm.init_sfm_state(tcfg, 256, 32),
+    tstate, tst = tsfm.bootstrap_two_view(tsfm.init_sfm_state(tcfg, 256, 32, device="cpu"),
                                           *tframes[0], *tframes[1], tK, None, tcfg,
                                           f_samples=_t(idx))
     return jstate, jst, tstate, tst
@@ -123,7 +123,7 @@ def test_bootstrap_two_view_with_injected_samples(bootstrapped):
 def test_register_frame_from_the_same_state(seq, bootstrapped):
     frames, K, _, jcfg, tframes, tK, tcfg = seq
     jstate = bootstrapped[0]
-    tstate = sfm_state_from_numpy(jstate)
+    tstate = sfm_state_from_numpy(jstate, device="cpu")
     key = jax.random.PRNGKey(11)
     jnew, jst = jax.jit(jsfm.register_frame, static_argnames="config")(
         jstate, *frames[2], K, key, config=jcfg)

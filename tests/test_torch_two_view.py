@@ -156,3 +156,24 @@ def test_cuda_request_raises_without_cuda():
     with pytest.raises(ValueError):
         resolve_device("auto")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("make", ["pose", "landmarks", "sfm_state", "converter"])
+def test_constructors_need_a_device(make):
+    """No constructor of the port puts tensors on the CPU unless asked:
+    ``device`` is a required keyword."""
+    from points_matching_tpu_torch.core.config import SfMConfig
+    from points_matching_tpu_torch.core.convert import pose_from_numpy
+    from points_matching_tpu_torch.core.types import Landmarks, Pose
+    from points_matching_tpu_torch.pipelines.sfm import init_sfm_state
+
+    call = {"pose": lambda **kw: Pose.identity((2,), **kw),
+            "landmarks": lambda **kw: Landmarks.empty(4, **kw),
+            "sfm_state": lambda **kw: init_sfm_state(SfMConfig(), 8, 32, **kw),
+            "converter": lambda **kw: pose_from_numpy(
+                Pose(R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32)), **kw)}[make]
+    with pytest.raises(TypeError):
+        call()
+    out = call(device="cpu")
+    first = out.R if hasattr(out, "R") else (out.xyz if hasattr(out, "xyz") else out.X)
+    assert first.device.type == "cpu"

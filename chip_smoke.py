@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths (two-view SURF and ORB, incremental
-SfM with loop closure, the pose graph, all-pairs scores) once on one CUDA
-GPU.
+"""Drive the PyTorch port's main paths (two-view SURF and ORB, the staged
+two-view pipeline, incremental SfM with loop closure, the pose graph,
+all-pairs scores, distributed SLAM) once on one CUDA GPU.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --dslam-worker RANK PORT OUT`` is one of the two
+processes of the ``distributed`` phase's world-size-2 run, which the script
+starts itself.)
 
 Phases, in order, one line each and their seconds at the end; any failure
 exits non-zero before the result line:
@@ -41,9 +45,14 @@ exits non-zero before the result line:
              masked, and the 32-d sequences (64 × 256 × 256 × 32), each held
              to its plain version as the 512 × 512 cases are.
    widths  — K1 and K1b at D = 16 and 48 (padded with zero columns to 32
-             and 64) and 128 (SIFT; its own instance), K4 at W = 4 (padded
-             to 8) and 16 (512-bit; its own instance), 8 pairs each, against
-             their plain versions with the built widths' tolerances.
+             and 64), 128 (SIFT; its own instance) and 160, 256, 512 (the
+             chunked kernel; 160 padded to 192), K4 at W = 4 (padded to 8),
+             16 (512-bit; its own instance) and 24, 32 (the chunked
+             kernel), 8 pairs each, against their plain versions with the
+             built widths' tolerances.
+   staged  — ``staged_two_view`` at world size 1 on 4 rendered pairs, SURF
+             then ORB: launches, ms, and each pair equal to
+             ``two_view_pipeline`` with the same RANSAC samples.
 5. sfm     — BASELINE config 3 without loop closure: 100 rendered 512×384
              frames → Hessian/SURF on the card → ``run_incremental_sfm``
              (128 / 8,192 / 65,536, ``ba_every=4``, ``chunk_size=16``), held
@@ -77,15 +86,23 @@ exits non-zero before the result line:
              and mean translation error must fall; ms per GN iteration, host
              syncs, peak memory.
    all_pairs — BASELINE config 1's sweep (bench.py ``bench_all_pairs``:
-             1,024 × 256 × 64-d, ratio 0.8) through ``all_pairs_scores`` on
-             K1: seconds a sweep and pairs/s beside the FMA bound, peak
-             memory; 8 query frames × all 1,024 against the plain version
-             (differences only at f32 near-ties of the ratio); a planted
-             near-duplicate pair (7, 900) must be each other's best.
-6. result  — one JSON line of the SfM, pose-graph and all-pairs numbers,
-             one of per-kernel numbers (launches by path: surf, orb, sfm,
-             loop, all_pairs), then the last line
-             ``{"ok": true, "device": {...}}``.
+             1,024 × 256 × 64-d, ratio 0.8) through ``all_pairs_scores`` (the
+             ring with ``mesh=None``: one step) on K1: seconds a sweep and
+             pairs/s beside the FMA bound, peak memory; 8 query frames × all
+             1,024 against the plain version (differences only at f32
+             near-ties of the ratio); a planted near-duplicate pair (7, 900)
+             must be each other's best.
+   distributed — BASELINE config 4 on its stand-in (272 of KITTI 00's 4,541
+             frames: 16 segments of 20, overlap 4, 3,000 landmarks, 256 ×
+             32-d features, seed 5) through ``run_distributed_slam``: at
+             world size 1 over NCCL, then as two processes on this card
+             over gloo, held to the reference test's gates, the same
+             registrations and trajectories within 1 % of the extent;
+             GPU against CPU on the 16-frame, 2-segment sequence.
+6. result  — one JSON line of the SfM, pose-graph, all-pairs, staged and
+             distributed numbers, one of per-kernel numbers (launches by
+             path: surf, orb, sfm, loop, all_pairs, staged, distributed),
+             then the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the card's published peaks (NVIDIA H100 SXM data sheet): 3.35
 TB/s of device memory and 67 TFLOP/s fp32, an FMA counted as two flops, so
@@ -360,6 +377,54 @@ def _k1_case(tag: str, nb: int, n1: int, n2: int, d: int, masked: float, gen, de
     ms, pms = measure(f"K1 f32 {tag}", fused_l2_top2, l2_top2_plain, (q, t, t_mask), bound)
     return dict(shape=[nb, n1, n2, d], masked_train_rows=nb * n2 - valid, max_abs_err=err,
                 ms=ms, plain_ms=pms, **bound, library_ms=None)
+
+
+def _ransac_case(tag: str, H: int, N: int, gen, dev, measure) -> dict:
+    """K3 then K2 on one pair at H hypotheses over N correspondences,
+    against their plain versions with the same checks as the 64-pair case
+    (K3 every F bit-equal, K2 every count equal), times and bounds."""
+    import torch
+
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
+        minimal_eight_point, minimal_eight_point_plain)
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
+        ransac_score_hypotheses, ransac_score_plain)
+
+    p1, p2, pmask = _scenes(1, N, gen, dev)
+    pick = torch.rand(1, H, N, generator=gen, device=dev).topk(8, dim=-1).indices
+    sp1, sp2 = (torch.gather(p[:, None].expand(1, H, N, 2), 2,
+                             pick[..., None].expand(1, H, 8, 2)).contiguous()
+                for p in (p1, p2))
+    kF = minimal_eight_point(sp1, sp2)
+    pF = minimal_eight_point_plain(sp1, sp2)
+    torch.cuda.synchronize()
+    k3_ok = bool(torch.isfinite(kF).all()) and torch.equal(kF, pF)
+    per_sample = _elementwise_ops(minimal_eight_point_plain, sp1[:1, :1].cpu(),
+                                  sp2[:1, :1].cpu())
+    k3_bound = _bound(H * (2 * 8 * 2 + 9) * 4, H * per_sample, FP32_INSTR_PER_S)
+    print(f"kernel K3 {tag} 1x{H}: max|F err| {float((kF - pF).abs().max()):.3g} (tol 0), "
+          f"lanes per sample G = {minimal_eight_point.last_group}")
+    _check(k3_ok, f"K3 {tag} disagrees with plain")
+    k3_ms, k3_pms = measure(f"K3 {tag} 1x{H}", minimal_eight_point, minimal_eight_point_plain,
+                            (sp1, sp2), k3_bound, plain_iters=3)
+    args = (kF, p1, p2, pmask, 1.5)
+    kc = ransac_score_hypotheses(*args)
+    pc = ransac_score_plain(*args)
+    torch.cuda.synchronize()
+    cdiff = int((kc - pc).abs().max())
+    per_cell = _elementwise_ops(ransac_score_plain, kF[:1, :1].cpu(), p1[:1, :1].cpu(),
+                                p2[:1, :1].cpu(), pmask[:1, :1].cpu(), 1.5)
+    k2_bound = _bound(H * (9 + 1) * 4 + N * (2 * 2 * 4 + 1), H * N * per_cell,
+                      FP32_INSTR_PER_S)
+    print(f"kernel K2 {tag} 1x{H}x{N}: max|count diff| {cdiff} (tol 0), "
+          f"max count {int(kc.max())}/{N}")
+    _check(cdiff == 0 and int(kc.max()) > N // 2, f"K2 {tag} disagrees with plain")
+    k2_ms, k2_pms = measure(f"K2 {tag} 1x{H}x{N}", ransac_score_hypotheses,
+                            ransac_score_plain, args, k2_bound)
+    return dict(K3=dict(shape=[1, H], max_abs_err=0.0, ms=k3_ms, plain_ms=k3_pms, **k3_bound,
+                        library_ms=None, group=minimal_eight_point.last_group),
+                K2=dict(shape=[1, H, N], max_abs_err=float(cdiff), ms=k2_ms, plain_ms=k2_pms,
+                        **k2_bound, library_ms=None))
 
 
 def _rendered_frames(dev, num_frames: int):
@@ -671,11 +736,13 @@ def _near_tie_cells(got, ref, qd, qm, td, tm, ratio: float) -> int:
 
 def _widths(dev, measure) -> dict:
     """K1 / K1b at widths the kernel is not built for (D = 16, 48: zero
-    columns up to 32 and 64) and at its new instance (D = 128, SIFT), and K4
-    at W = 4 (zero words up to 8) and its new instance W = 16 (512-bit),
-    each against its plain version on the card: the same tolerances as at
-    the built widths (K1 distances 1e-5, no 1-NN mismatch off near-ties; K4
-    exact).  Times at 8 pairs."""
+    columns up to 32 and 64), at its instance D = 128 (SIFT) and on its
+    chunked path above 128 (D = 160, padded to 192; 256; 512), and K4 at
+    W = 4 (zero words up to 8), its instance W = 16 (512-bit) and its
+    chunked path (W = 24, 32), each against its plain version on the card:
+    the same tolerances as at the built widths (K1 distances 1e-5, no 1-NN
+    mismatch off near-ties; K4 exact).  Times at 8 pairs; bounds from the
+    unpadded width."""
     import torch
 
     from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
@@ -686,7 +753,7 @@ def _widths(dev, measure) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     out = {"K1": {}, "K4": {}}
     B, N = 8, 512
-    for d in (16, 48, 128):
+    for d in (16, 48, 128, 160, 256, 512):
         q = torch.randn(B, N, d, generator=gen, device=dev)
         q = q / q.norm(dim=-1, keepdim=True)
         t = torch.randn(B, N, d, generator=gen, device=dev)
@@ -710,9 +777,10 @@ def _widths(dev, measure) -> dict:
                        FP32_FLOPS_PER_S)
         ms, pms = measure(f"K1 f32 D = {d} x{B}", fused_l2_top2, l2_top2_plain,
                           (q, t, t_mask), bound)
-        out["K1"][f"D{d}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound)
+        out["K1"][f"D{d}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound,
+                                  library_ms=None)
     HB, HN = 8, 1024
-    for w in (4, 16):
+    for w in (4, 16, 24, 32):
         hq, ht, hmask = _binary_descriptors(HB, HN, w, gen, dev)
         kd, ki = fused_hamming_top2(hq, ht, hmask)
         pd, pi = hamming_top2_plain(hq, ht, hmask)
@@ -726,7 +794,8 @@ def _widths(dev, measure) -> dict:
                        POPC_PER_S)
         ms, pms = measure(f"K4 W = {w} x{HB}", fused_hamming_top2, hamming_top2_plain,
                           (hq, ht, hmask), bound, plain_iters=3)
-        out["K4"][f"W{w}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound)
+        out["K4"][f"W{w}"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound,
+                                  library_ms=None)
     return out
 
 
@@ -836,7 +905,8 @@ def _all_pairs(dev, K_mod) -> dict:
     (bench.py ``bench_all_pairs``): 1,024 images × 256 keypoints × 64-d, every
     row valid, descriptors from ``RandomState(3)``, L2-normalised; ratio 0.8;
     frame 7 planted as frame 900 plus noise 0.01.  The full N² sweep through
-    ``all_pairs_scores`` on the card (kernel K1); a block of 8 query frames ×
+    ``all_pairs_scores`` on the card (the ring with ``mesh=None``, one step;
+    kernel K1); a block of 8 query frames ×
     all 1,024 against the plain version; the planted pair must be each
     other's best partner."""
     import torch
@@ -966,8 +1036,327 @@ def _loop_closure(dev, K_mod, res, frames, K, cfg, gt, extent) -> dict:
                 gpu_vs_cpu_dR=dR, gpu_vs_cpu_dt=dt)
 
 
+def _staged(dev, K_mod) -> dict:
+    """``staged_two_view`` at world size 1 (its four stages composed on the
+    card) on 4 rendered 993×660 pairs (frames i, i + 1 of a 5-frame
+    sequence), SURF (the demo's ``--config ransac``) and then ORB
+    (``orb_default_config()``): its launches (``launches_by_path.staged``)
+    and ms a microbatch of 4; then the same pairs with the same injected
+    RANSAC samples through the staged path and through
+    ``two_view_pipeline`` pair by pair: equal keypoints, matches and
+    inliers, F within 1e-5."""
+    import torch
+
+    from points_matching_tpu_torch.core.config import named_config
+    from points_matching_tpu_torch.data.render import render_sequence
+    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
+    from points_matching_tpu_torch.pipelines.staged_two_view import staged_two_view
+    from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
+
+    imgs, *_ = render_sequence(num_frames=5, num_landmarks=500, image_size=(993, 660), seed=0)
+    im = torch.stack([torch.from_numpy(np.ascontiguousarray(i)) for i in imgs]).to(dev)
+    img1, img2 = im[:4].contiguous(), im[1:].contiguous()
+    seeds = torch.arange(4)
+    out, launches = {}, {}
+    for tag, cfg, kernels in (
+            ("surf", named_config("ransac"),
+             ("fused_l2_top2", "minimal_eight_point", "ransac_score_hypotheses")),
+            ("orb", named_config("orb"),
+             ("fused_hamming_top2", "minimal_eight_point", "ransac_score_hypotheses"))):
+        staged_two_view(img1, img2, seeds, cfg)                          # warm-up
+        torch.cuda.synchronize()
+        K_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        w = staged_two_view(img1, img2, seeds, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[tag] = K_mod.launch_counts()
+        _check(all(launches[tag][k] > 0 for k in kernels),
+               f"staged {tag}: a kernel of the path never launched")
+        H = cfg.ransac.num_hypotheses
+        gen = torch.Generator(device=dev).manual_seed(1)
+        sp = [sample_minimal_points(gen, w["mmask"][i] != 0, H, 8, (w["p1"][i], w["p2"][i]))
+              for i in range(4)]
+        sp1, sp2 = torch.stack([x[0] for x in sp]), torch.stack([x[1] for x in sp])
+        ws = staged_two_view(img1, img2, seeds, cfg, samples=(sp1, sp2))
+        rows, dF = [], 0.0
+        for i in range(4):
+            res = two_view_pipeline(img1[i], img2[i], None, cfg, samples=(sp1[i], sp2[i]))
+            same = (torch.equal(ws["xy1"][i], res.kps1.xy)
+                    and torch.equal(ws["xy2"][i], res.kps2.xy)
+                    and torch.equal(ws["kmask1"][i] != 0, res.kps1.mask)
+                    and torch.equal(ws["kmask2"][i] != 0, res.kps2.mask)
+                    and torch.equal(ws["mmask"][i] != 0, res.matches.mask)
+                    and torch.equal(ws["p1"][i], res.p1) and torch.equal(ws["p2"][i], res.p2)
+                    and int(ws["num_inliers"][i]) == int(res.estimate.num_inliers))
+            dF = max(dF, float((ws["F"][i] - res.estimate.F).abs().max()))
+            rows.append((int(res.kps1.mask.sum()), int(res.matches.mask.sum()),
+                         int(res.estimate.num_inliers)))
+            _check(same, f"staged {tag}: pair {i} differs from two_view_pipeline")
+            _check(2 * rows[-1][2] >= rows[-1][1] and rows[-1][1] >= 8,
+                   f"staged {tag}: pair {i} has too few inliers")
+        print(f"staged {tag}: 4 pairs 993x660 through 4 stages (world size 1) {ms:.3f} ms "
+              f"(host clock, synchronized; {ms / 4:.3f} ms a pair); launches {launches[tag]}; "
+              f"with the same samples == two_view_pipeline per pair (kp1, matches, inliers) "
+              f"{rows}, max |dF| {dF:.3g} (tol 1e-05)")
+        _check(dF <= 1e-5, f"staged {tag}: F differs from two_view_pipeline")
+        out[tag] = dict(ms_per_batch=ms, pairs=4, per_pair=rows, max_dF=dF)
+    out["launches"] = {k: launches["surf"][k] + launches["orb"][k] for k in launches["surf"]}
+    return out
+
+
+# BASELINE config 4's stand-in: tests/test_distributed_slam.py's
+# test_distributed_slam_config4_scale (272 frames, 16 segments of 20 with an
+# overlap of 4, 3,000 landmarks, 256 features of 32-d, seed 5)
+CONFIG4 = dict(num_frames=272, num_landmarks=3000, n_feat=256, seed=5, corridor=True)
+SEG4, OVERLAP4 = 20, 4
+# Config 4 at world sizes 1 and 2 against each other.  Two runs of the same
+# world size differ already: the float atomics of the windowed BAs'
+# index_add_ move a submap's cameras by up to 0.041 RMS, and the Sim(3)
+# chain carries that along the corridor.  On an NVIDIA H100 (700 W,
+# examples/probe_config4_torch.py, 27 pairs of 7 + 4 runs) the RMS aligned
+# gap between two runs was at most 0.396 (world size 1 twice), 0.460 (1
+# and 2) and 0.425 (2 twice), and the ATEs of 11 runs lay within 0.033 of
+# each other (0.8214-0.8542).  The bounds are about twice those: the RMS gap
+# (the ATE's own measure) as a fraction of the extent, and the ATEs' difference.
+RUN_GAP_TOL = 0.012
+ATE_GAP_TOL = 0.08
+
+
+def _dslam_config(segment_len: int, max_landmarks: int = 1024, max_observations: int = 4096):
+    """tests/test_distributed_slam.py's ``_small_config``."""
+    from points_matching_tpu_torch.core.config import (
+        BAConfig, MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig)
+
+    return SfMConfig(
+        two_view=TwoViewConfig(matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.8),
+                               ransac=RansacConfig(num_hypotheses=128, inlier_threshold=2.0)),
+        ba=BAConfig(max_iterations=6), max_cameras=segment_len, max_landmarks=max_landmarks,
+        max_observations=max_observations, local_ba_window=segment_len)
+
+
+def _config4_run(dev, mesh):
+    """Config 4's stand-in through ``run_distributed_slam`` on ``dev``:
+    (result, ground-truth centres, seconds on the host clock)."""
+    import torch
+
+    from points_matching_tpu_torch.data.synthetic import make_stacked_sequence
+    from points_matching_tpu_torch.pipelines.distributed_slam import run_distributed_slam
+
+    kps, desc, mask, K, gt = make_stacked_sequence(device=dev, **CONFIG4)
+    cfg = _dslam_config(SEG4, 2048, 8192)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_distributed_slam(kps, desc, mask, K, cfg, mesh=mesh, segment_len=SEG4,
+                               overlap=OVERLAP4, seed=0)
+    torch.cuda.synchronize()
+    return res, gt, time.perf_counter() - t0
+
+
+def _aligned_gap(a, b, rms: bool = False) -> float:
+    """Largest distance between two trajectories after a Sim(3) alignment
+    (their root mean square with ``rms``, as the ATE is)."""
+    import torch
+
+    from points_matching_tpu_torch.utils.evaluation import umeyama_alignment
+
+    a, b = (torch.as_tensor(np.asarray(x), dtype=torch.float64) for x in (a, b))
+    s, R, t = umeyama_alignment(a, b)
+    d = (s * a @ R.T + t - b).norm(dim=-1)
+    return float(d.square().mean().sqrt() if rms else d.max())
+
+
+def _config4_gates(tag: str, traj, cam_valid, regs, initial_cost, final_cost, gt) -> dict:
+    """The reference test's gates: 16 segments, every frame registered, ≥ 256
+    frames, > 95 % of cameras valid, ATE < 10 % of the extent, BA cost not
+    above its start."""
+    import torch
+
+    from points_matching_tpu_torch.utils.evaluation import absolute_trajectory_error
+
+    traj, valid, regs = np.asarray(traj), np.asarray(cam_valid), np.asarray(regs)
+    n = len(traj)
+    gt_used = gt[:n]
+    extent = float(np.linalg.norm(gt_used.max(0) - gt_used.min(0)))
+    ate = float(absolute_trajectory_error(torch.from_numpy(traj).float(),
+                                          torch.from_numpy(gt_used).float(),
+                                          torch.from_numpy(valid)).rmse)
+    print(f"distributed {tag}: segments {regs.shape[0]}, frames registered "
+          f"{int(regs.sum())}/{regs.size}, cameras {n} ({valid.mean():.4f} valid), ATE "
+          f"{ate:.4f} ({ate / extent:.4%} of the extent {extent:.2f}; bound 10 %), global BA "
+          f"cost {initial_cost:.6g} -> {final_cost:.6g}")
+    _check(regs.shape[0] == 16 and regs.all(), f"distributed {tag}: a frame did not register")
+    _check(n >= 256 and valid.mean() > 0.95, f"distributed {tag}: too few valid cameras")
+    _check(ate < 0.10 * extent, f"distributed {tag}: ATE {ate} over 10 % of {extent}")
+    _check(final_cost <= initial_cost, f"distributed {tag}: the global BA raised the cost")
+    return dict(frames=n, valid_share=float(valid.mean()), ate=ate, extent=extent,
+                initial_cost=initial_cost, final_cost=final_cost)
+
+
+def _dslam_worker(rank: int, port: int, out_path: str) -> int:
+    """One of the two processes of config 4 at world size 2 on one card:
+    a gloo group (NCCL takes one rank a GPU), a 2 × 1 data × model mesh,
+    the run on the card; rank 0 writes the result as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from points_matching_tpu_torch.core.device import pin_fp32, resolve_device
+    from points_matching_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    dev = resolve_device("cuda")
+    pin_fp32()
+    initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank, timeout=60)
+    mesh = make_mesh((2, 1), ("data", "model"))
+    res, gt, sec = _config4_run(dev, mesh)
+    if rank == 0:
+        st = res.ba_stats
+        with open(out_path, "w") as f:
+            json.dump(dict(seconds=sec, trajectory=res.trajectory.tolist(),
+                           cam_valid=res.cam_valid.tolist(),
+                           regs=res.registered_per_segment.tolist(),
+                           initial_cost=float(st.initial_cost), final_cost=float(st.final_cost),
+                           iterations=int(st.iterations), stage_seconds=res.stage_seconds), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _config4_ws2() -> tuple:
+    """Config 4 at world size 2: two ``_dslam_worker`` processes on this
+    card, joined with a deadline and killed on failure; (rank 0's result,
+    seconds with the processes' start)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ws2.json")
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dslam-worker",
+                                   str(r), str(port), path]) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        _check(rcs == [0, 0], f"distributed: world-size-2 workers exited {rcs}")
+        with open(path) as f:
+            return json.load(f), wall
+
+
+def _distributed(dev, K_mod) -> dict:
+    """BASELINE config 4 on its stand-in (``CONFIG4``: 272 of KITTI 00's
+    4,541 frames, since a submap is the host-bound SfM loop) through
+    ``run_distributed_slam``: at world size 1 over NCCL (a 1 × 1 data ×
+    model mesh), then at world size 2 as two processes on this card over
+    gloo (``_dslam_worker``),
+    each held to the reference test's gates; world size 2 must register the
+    same frames as 1, give the same trajectory within ``RUN_GAP_TOL`` of the
+    extent (RMS after alignment) and an ATE within ``ATE_GAP_TOL``.  Then
+    GPU against CPU on tests/test_distributed_slam.py's
+    16-frame sequence (2 segments of 10): the same frames registered and
+    aligned trajectories within 1 % of the extent."""
+    import torch
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.data.synthetic import make_stacked_sequence
+    from points_matching_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from points_matching_tpu_torch.pipelines.distributed_slam import run_distributed_slam
+
+    out = {}
+    initialize_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+                           rank=0, timeout=60, force=True)
+    _check(dist.get_backend() == "nccl", "world size 1 is not on NCCL")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    K_mod.reset_launch_counts()
+    res1, gt, sec1 = _config4_run(dev, mesh)
+    launches = K_mod.launch_counts()
+    dist.destroy_process_group()
+    st = res1.ba_stats
+    g1 = _config4_gates("ws1 (NCCL)", res1.trajectory, res1.cam_valid,
+                        res1.registered_per_segment, float(st.initial_cost),
+                        float(st.final_cost), gt)
+    its1 = int(st.iterations)
+    stage = res1.stage_seconds
+    print(f"distributed ws1: {sec1:.3f} s, {CONFIG4['num_frames'] / sec1:.3f} frames/s (host "
+          f"clock, synchronized); submaps {stage['submaps']:.3f} s, merge {stage['merge']:.3f} "
+          f"s, global BA {stage['global_ba']:.3f} s in {its1} LM iterations "
+          f"({stage['global_ba'] / its1 * 1e3:.3f} ms an iteration); launches {launches}")
+    for name in ("fused_l2_top2", "minimal_eight_point", "ransac_score_hypotheses"):
+        _check(launches[name] > 0, f"distributed: {name} never launched")
+    out.update(ws1=dict(g1, seconds=sec1, frames_per_s=CONFIG4["num_frames"] / sec1,
+                        lm_iterations=its1, stage_seconds=stage,
+                        ba_ms_per_iteration=stage["global_ba"] / its1 * 1e3),
+               launches=launches)
+
+    # world size 2: two processes on this card, one gloo group
+    ws2, wall2 = _config4_ws2()
+    g2 = _config4_gates("ws2 (2 processes, gloo)", ws2["trajectory"], ws2["cam_valid"],
+                        ws2["regs"], ws2["initial_cost"], ws2["final_cost"], gt)
+    gap12 = _aligned_gap(ws2["trajectory"], res1.trajectory, rms=True)
+    gap12_max = _aligned_gap(ws2["trajectory"], res1.trajectory)
+    tol = RUN_GAP_TOL * g1["extent"]
+    print(f"distributed ws2: {ws2['seconds']:.3f} s in the run, "
+          f"{CONFIG4['num_frames'] / ws2['seconds']:.3f} "
+          f"frames/s ({wall2:.3f} s with the processes' start); submaps "
+          f"{ws2['stage_seconds']['submaps']:.3f} s, global BA "
+          f"{ws2['stage_seconds']['global_ba']:.3f} s in {ws2['iterations']} LM iterations; "
+          f"against ws1: same frames registered "
+          f"{np.array_equal(np.asarray(ws2['regs']), res1.registered_per_segment)}, aligned "
+          f"trajectory gap RMS {gap12:.4g} (bound {tol:.4g} = {RUN_GAP_TOL:.1%} of the extent), "
+          f"largest {gap12_max:.4g}; ATE {g2['ate']:.4f} vs {g1['ate']:.4f} (bound on the "
+          f"difference {ATE_GAP_TOL})")
+    _check(np.array_equal(np.asarray(ws2["regs"]), res1.registered_per_segment),
+           "distributed: world sizes 1 and 2 registered other frames")
+    _check(gap12 < tol, "distributed: world sizes 1 and 2 trajectories differ")
+    _check(abs(g2["ate"] - g1["ate"]) < ATE_GAP_TOL,
+           "distributed: world sizes 1 and 2 ATEs differ")
+    out["ws2"] = dict(g2, seconds=ws2["seconds"], seconds_with_start=wall2,
+                      frames_per_s=CONFIG4["num_frames"] / ws2["seconds"],
+                      stage_seconds=ws2["stage_seconds"], lm_iterations=ws2["iterations"],
+                      gap_to_ws1_rms=gap12, gap_to_ws1_max=gap12_max)
+
+    # GPU against CPU on the 16-frame sequence
+    kps, desc, mask, K, gt16 = make_stacked_sequence(device=dev)
+    cfg = _dslam_config(10)
+    t0 = time.perf_counter()
+    gpu = run_distributed_slam(kps, desc, mask, K, cfg, segment_len=10, overlap=4)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_distributed_slam(kps.cpu(), desc.cpu(), mask.cpu(), K.to("cpu"), cfg,
+                               segment_len=10, overlap=4)
+    t_cpu = time.perf_counter() - t0
+    ext16 = float(np.linalg.norm(gt16.max(0) - gt16.min(0)))
+    gap = _aligned_gap(gpu.trajectory, cpu.trajectory)
+    print(f"distributed GPU vs CPU on 16 frames (2 segments of 10): registered "
+          f"{int(gpu.registered_per_segment.sum())} vs {int(cpu.registered_per_segment.sum())} "
+          f"of 20, aligned trajectory gap {gap:.4g} (bound {0.01 * ext16:.4g} = 1 % of the "
+          f"extent {ext16:.2f}); {t_gpu:.3f} s on the card, {t_cpu:.3f} s on the CPU")
+    _check(np.array_equal(gpu.registered_per_segment, cpu.registered_per_segment)
+           and gpu.registered_per_segment.all(), "distributed: GPU and CPU registered other frames")
+    _check(gap < 0.01 * ext16, "distributed: GPU and CPU trajectories differ")
+    out["gpu_vs_cpu"] = dict(gap=gap, extent=ext16, seconds_gpu=t_gpu, seconds_cpu=t_cpu)
+    return out
+
+
 def main() -> int:
     import torch
+
+    if sys.argv[1:2] == ["--dslam-worker"]:
+        return _dslam_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
 
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1208,6 +1597,18 @@ def main() -> int:
         _k1_case("bank->frame", 1, 8192, 256, 64, 0.9, gen, dev, measure),
         _k1_case("D=32", 64, 256, 256, 32, 0.05, gen, dev, measure),
     ]
+    # ... and at config 4's (one pair, 32-d): a frame against a submap's
+    # 2,048-row bank, whose rows are 22 % valid on average when a frame is
+    # associated (6-50 % over the run's 288 associations on an NVIDIA H100,
+    # examples/probe_config4_torch.py), the bank's cross-check against the
+    # frame, and frame to frame (the bootstrap, the previous frame); the
+    # bootstrap's RANSAC at 128 hypotheses over 256 correspondences
+    report["K1_config4"] = [
+        _k1_case("config4 frame->bank", 1, 256, 2048, 32, 0.78, gen, dev, measure),
+        _k1_case("config4 bank->frame", 1, 2048, 256, 32, 0.0, gen, dev, measure),
+        _k1_case("config4 frame->frame", 1, 256, 256, 32, 0.0, gen, dev, measure),
+    ]
+    report["ransac_config4"] = _ransac_case("config4", 128, 256, gen, dev, measure)
     phase_s["k1sfm"] = time.perf_counter() - t_phase
 
     # K1 / K1b and K4 at widths other than the SURF and ORB ones: padded
@@ -1283,12 +1684,17 @@ def main() -> int:
 
     phase_s["slices"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    report["staged"] = _staged(dev, K)
+    phase_s["staged"] = time.perf_counter() - t_phase
+
     # -- 5. SfM: BASELINE config 3 (without loop closure), the JAX bench's
     # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
     for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
                       ("sfm32", lambda: _slice_sfm32(dev, K)), ("ba", lambda: _ba_sparse(dev)),
                       ("pose_graph", lambda: _pose_graph(dev)),
-                      ("all_pairs", lambda: _all_pairs(dev, K))):
+                      ("all_pairs", lambda: _all_pairs(dev, K)),
+                      ("distributed", lambda: _distributed(dev, K))):
         t_phase = time.perf_counter()
         report[phase] = fn()
         phase_s[phase] = time.perf_counter() - t_phase
@@ -1298,6 +1704,9 @@ def main() -> int:
     src = "points_matching_tpu_torch/csrc/"
     pallas = "points_matching_tpu/ops/pallas/"
     report["K1_f32"]["sfm_shapes"] = report["K1_sfm"]
+    report["K1_f32"]["config4_shapes"] = report["K1_config4"]
+    report["K3"]["config4_one_pair"] = report["ransac_config4"]["K3"]
+    report["K2"]["config4_one_pair"] = report["ransac_config4"]["K2"]
     report["K1_f32"]["widths"] = report["widths"]["K1"]
     report["K4"]["widths"] = report["widths"]["K4"]
     all_pairs = report["all_pairs"]
@@ -1305,11 +1714,14 @@ def main() -> int:
         "shape", "seconds", "pairs_per_s", "bound_s", "bound_by", "launches")}
     sfm_launches = report["sfm"].pop("launches")
     loop_launches = report["sfm"]["loop"].pop("launches")
+    staged_launches = report["staged"].pop("launches")
+    dist_launches = report["distributed"].pop("launches")
 
     def launches(name):
         by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
                        sfm=sfm_launches[name], loop=loop_launches[name],
-                       all_pairs=all_pairs["launches"] if name == "fused_l2_top2" else 0)
+                       all_pairs=all_pairs["launches"] if name == "fused_l2_top2" else 0,
+                       staged=staged_launches[name], distributed=dist_launches[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -1334,7 +1746,8 @@ def main() -> int:
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")
     print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba", "pose_graph",
-                                                        "all_pairs")}))
+                                                        "all_pairs", "staged",
+                                                        "distributed")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -4,8 +4,10 @@ The same two-view pipeline as the JAX package (Hessian detect → SURF
 describe → L2 match → 8-point / batched RANSAC F → residual audit →
 epilines; or the ORB configuration) and its incremental SfM (bootstrap from
 E, RANSAC PnP registration, triangulation, windowed sparse bundle
-adjustment: image → trajectory), written in PyTorch for one NVIDIA Hopper
-GPU.  Every TPU kernel on those paths is a hand-written CUDA kernel under
+adjustment: image → trajectory) with loop closure, written in PyTorch for
+NVIDIA Hopper GPUs; the parallel layer (``parallel/``) runs the all-pairs
+ring, pipeline stages, sharded bundle adjustment and distributed SLAM over
+``torch.distributed`` process groups.  Every TPU kernel on those paths is a hand-written CUDA kernel under
 ``csrc/`` (built with ``nvcc`` for ``sm_90a`` at first use, see
 ``ops/kernels/_build.py``), with a plain PyTorch version beside it that CPU
 tensors take.

@@ -19,6 +19,7 @@ from points_matching_tpu_torch.ba.residuals import (
     residuals_and_jacobians,
 )
 from points_matching_tpu_torch.ba.schur import (
+    _preduce,
     build_normal_equations,
     solve_schur,
     solve_schur_pcg,
@@ -69,10 +70,12 @@ def robust_cost(r: Tensor, mask: Tensor, huber_delta: float) -> Tensor:
     return torch.where(mask, per, torch.zeros_like(per)).sum()
 
 
-def ba_cost(state: BAState, K: CameraIntrinsics, huber_delta: float = 0.0) -> Tensor:
-    """Total (optionally Huber-robustified) reprojection cost."""
+def ba_cost(state: BAState, K: CameraIntrinsics, huber_delta: float = 0.0,
+            group=None) -> Tensor:
+    """Total (optionally Huber-robustified) reprojection cost (summed over
+    ``group``'s landmark shards when given)."""
     r = reprojection_residuals(state.poses, state.X, state.uv, state.mask, K)
-    return robust_cost(r, state.mask, huber_delta)
+    return _preduce(robust_cost(r, state.mask, huber_delta), group)
 
 
 def retract(poses: Pose, cam_fixed: Tensor, dc: Tensor) -> Pose:
@@ -131,10 +134,13 @@ def _select(accept: Tensor, new, old):
         X=torch.where(accept, new.X, old.X))
 
 
-def bundle_adjust(state: BAState, K: CameraIntrinsics, config: BAConfig = BAConfig()
-                  ) -> Tuple[BAState, LMStats]:
+def bundle_adjust(state: BAState, K: CameraIntrinsics, config: BAConfig = BAConfig(),
+                  group=None) -> Tuple[BAState, LMStats]:
     """Run LM to convergence (or ``config.max_iterations``); the cost never
-    increases (rejected steps keep the state and raise the damping)."""
+    increases (rejected steps keep the state and raise the damping).  With
+    ``group``, ``state`` holds this rank's landmarks (its columns of the
+    grid) and the camera terms are reduced over the group (``ba/schur.py``);
+    the poses and stats come out the same on every rank."""
     pin_fp32()
     if config.solver not in ("cholesky", "pcg"):
         raise ValueError(f"unknown solver: {config.solver!r}")
@@ -142,15 +148,16 @@ def bundle_adjust(state: BAState, K: CameraIntrinsics, config: BAConfig = BAConf
     def step(st: BAState, lam: Tensor) -> BAState:
         r, Jc, Jl = residuals_and_jacobians(st.poses, st.X, st.uv, st.mask, K)
         w = huber_weights(r, config.huber_delta) * st.mask.to(r.dtype)
-        blocks = build_normal_equations(r, Jc, Jl, w)
+        blocks = build_normal_equations(r, Jc, Jl, w, group)
         if config.solver == "pcg":
-            dc, dl = solve_schur_pcg(blocks, lam, config.pcg_iterations)
+            dc, dl = solve_schur_pcg(blocks, lam, config.pcg_iterations, group)
         else:
-            dc, dl = solve_schur(blocks, lam)
+            dc, dl = solve_schur(blocks, lam, group)
         return dataclasses.replace(st, poses=retract(st.poses, st.cam_fixed, dc),
                                    X=st.X + dl)
 
-    return lm_loop(state, lambda st: ba_cost(st, K, config.huber_delta), step, config)
+    return lm_loop(state, lambda st: ba_cost(st, K, config.huber_delta, group), step,
+                   config)
 
 
 def grid_from_obs(cam_idx: Tensor, lm_idx: Tensor, uv: Tensor, obs_mask: Tensor,

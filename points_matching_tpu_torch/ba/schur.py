@@ -9,6 +9,13 @@ camera×landmark coupling [C, L, 6, 3].  Eliminating landmarks gives the
 reduced camera system S dc = g with S = U − W V⁻¹ Wᵀ and g = bc − W V⁻¹ bl;
 then dl = V⁻¹ (bl − Wᵀ dc).  Solved by Cholesky (``solve_schur``) or by
 Jacobi-preconditioned CG with an implicit S (``solve_schur_pcg``).
+
+Landmark sharding (the reference under GSPMD, ``parallel/sharded_ba.py``):
+with a process ``group``, each rank holds a block of the landmarks (its
+columns of the [C, L] grid).  U, bc, the Σ_l terms of S, g and the matvec,
+and the preconditioner's Σ_l term are completed by an ``all_reduce``; the
+camera solve is then replicated, and V, W, bl and the back-substitution stay
+local.  ``group=None`` reduces nothing (bit for bit the single process).
 """
 from __future__ import annotations
 
@@ -19,6 +26,15 @@ import torch
 Tensor = torch.Tensor
 
 
+def _preduce(x: Tensor, group) -> Tensor:
+    """Complete a local partial sum over ``group`` (``x`` itself for None)."""
+    if group is None:
+        return x
+    from points_matching_tpu_torch.parallel.comm import Comm
+
+    return Comm(group).psum(x)
+
+
 class NormalEqBlocks(NamedTuple):
     U: Tensor   # [C, 6, 6]
     V: Tensor   # [L, 3, 3]
@@ -27,16 +43,17 @@ class NormalEqBlocks(NamedTuple):
     bl: Tensor  # [L, 3]
 
 
-def build_normal_equations(r: Tensor, Jc: Tensor, Jl: Tensor, weights: Tensor
-                           ) -> NormalEqBlocks:
+def build_normal_equations(r: Tensor, Jc: Tensor, Jl: Tensor, weights: Tensor,
+                           group=None) -> NormalEqBlocks:
     """Weighted GN blocks from grid residuals/Jacobians: r [C, L, 2],
-    Jc [C, L, 2, 6], Jl [C, L, 2, 3], weights [C, L] (0 for invalid)."""
+    Jc [C, L, 2, 6], Jl [C, L, 2, 3], weights [C, L] (0 for invalid); with
+    ``group``, U and bc are reduced over it."""
     Jcw = Jc * weights[..., None, None]
-    U = torch.einsum("clki,clkj->cij", Jcw, Jc)
+    U = _preduce(torch.einsum("clki,clkj->cij", Jcw, Jc), group)
     V = torch.einsum("clki,clkj->lij", Jl * weights[..., None, None], Jl)
     W = torch.einsum("clki,clkj->clij", Jcw, Jl)
     wr = r * weights[..., None]
-    bc = -torch.einsum("clki,clk->ci", Jc, wr)
+    bc = _preduce(-torch.einsum("clki,clk->ci", Jc, wr), group)
     bl = -torch.einsum("clki,clk->li", Jl, wr)
     return NormalEqBlocks(U=U, V=V, W=W, bc=bc, bl=bl)
 
@@ -67,16 +84,16 @@ def _inv3(V: Tensor) -> Tensor:
     return torch.stack(rows, -2) / det[..., None, None]
 
 
-def schur_reduce(blocks: NormalEqBlocks, lam) -> Tuple[Tensor, Tensor, Tensor]:
+def schur_reduce(blocks: NormalEqBlocks, lam, group=None) -> Tuple[Tensor, Tensor, Tensor]:
     """Damped Schur complement: (S [C, 6, C, 6], g [C, 6], Vinv [L, 3, 3])."""
     C = blocks.U.shape[0]
     U = _damp(blocks.U, lam)
     Vinv = _inv3(_damp(blocks.V, lam))
     Y = torch.einsum("clij,ljk->clik", blocks.W, Vinv)             # W V⁻¹
-    S = -torch.einsum("clik,dljk->cidj", Y, blocks.W)
+    S = _preduce(-torch.einsum("clik,dljk->cidj", Y, blocks.W), group)
     idx = torch.arange(C, device=U.device)
     S[idx, :, idx, :] += U
-    g = blocks.bc - torch.einsum("clik,lk->ci", Y, blocks.bl)
+    g = blocks.bc - _preduce(torch.einsum("clik,lk->ci", Y, blocks.bl), group)
     return S, g, Vinv
 
 
@@ -85,22 +102,23 @@ def _back_substitute(blocks: NormalEqBlocks, Vinv: Tensor, dc: Tensor) -> Tensor
     return torch.einsum("lij,lj->li", Vinv, rhs)
 
 
-def solve_schur(blocks: NormalEqBlocks, lam) -> Tuple[Tensor, Tensor]:
+def solve_schur(blocks: NormalEqBlocks, lam, group=None) -> Tuple[Tensor, Tensor]:
     """Dense Cholesky on the reduced camera system + landmark
     back-substitution → (dc [C, 6], dl [L, 3])."""
     C = blocks.U.shape[0]
-    S, g, Vinv = schur_reduce(blocks, lam)
+    S, g, Vinv = schur_reduce(blocks, lam, group)
     Lc = torch.linalg.cholesky_ex(S.reshape(C * 6, C * 6))[0]
     dc = torch.cholesky_solve(g.reshape(C * 6, 1), Lc).reshape(C, 6)
     return dc, _back_substitute(blocks, Vinv, dc)
 
 
-def schur_matvec(blocks: NormalEqBlocks, Vinv: Tensor, lam, x: Tensor) -> Tensor:
+def schur_matvec(blocks: NormalEqBlocks, Vinv: Tensor, lam, x: Tensor,
+                 group=None) -> Tensor:
     """Implicit S @ x ([C, 6] → [C, 6]) without forming S."""
     Ux = torch.einsum("cij,cj->ci", _damp(blocks.U, lam), x)
     Wtx = torch.einsum("clij,ci->lj", blocks.W, x)
     VWtx = torch.einsum("lij,lj->li", Vinv, Wtx)
-    return Ux - torch.einsum("clij,lj->ci", blocks.W, VWtx)
+    return Ux - _preduce(torch.einsum("clij,lj->ci", blocks.W, VWtx), group)
 
 
 def pcg(mv, precond, g: Tensor, iterations: int) -> Tensor:
@@ -123,15 +141,17 @@ def pcg(mv, precond, g: Tensor, iterations: int) -> Tensor:
     return x
 
 
-def solve_schur_pcg(blocks: NormalEqBlocks, lam, iterations: int = 50
+def solve_schur_pcg(blocks: NormalEqBlocks, lam, iterations: int = 50, group=None
                     ) -> Tuple[Tensor, Tensor]:
     """Jacobi-preconditioned CG on the reduced camera system (the 6×6
     diagonal blocks of S inverted), then back-substitution."""
     Vinv = _inv3(_damp(blocks.V, lam))
-    g = blocks.bc - torch.einsum("clij,ljk,lk->ci", blocks.W, Vinv, blocks.bl)
+    g = blocks.bc - _preduce(torch.einsum("clij,ljk,lk->ci", blocks.W, Vinv, blocks.bl),
+                             group)
     Y = torch.einsum("clij,ljk->clik", blocks.W, Vinv)
-    S_diag = _damp(blocks.U, lam) - torch.einsum("clik,cljk->cij", Y, blocks.W)
+    S_diag = _damp(blocks.U, lam) - _preduce(torch.einsum("clik,cljk->cij", Y, blocks.W),
+                                             group)
     Minv = torch.linalg.inv_ex(S_diag)[0]
-    dc = pcg(lambda x: schur_matvec(blocks, Vinv, lam, x),
+    dc = pcg(lambda x: schur_matvec(blocks, Vinv, lam, x, group),
              lambda r: torch.einsum("cij,cj->ci", Minv, r), g, iterations)
     return dc, _back_substitute(blocks, Vinv, dc)

@@ -16,8 +16,15 @@ landmark sums) exists because scatters run on the TPU's scalar unit, and is
 not ported.  On CUDA ``index_add_`` adds with float atomics, so two runs of
 the same problem may differ in the last bits (and an LM accept/reject may
 flip); runs on the card are held to the CPU by cost, not by bits.
-The reference's ``axis_name`` (observation sharding under ``shard_map``)
-belongs to the parallel layer and is not here.
+
+Observation sharding (the reference's ``axis_name`` under ``shard_map``):
+with a process ``group``, the observation arrays are this rank's shard,
+poses and landmarks are replicated, and every local ``index_add_`` partial
+(U, V, bc, bl; the matvec's two sums; the gradient and preconditioner sums;
+the back-substitution; the cost) is completed by one ``all_reduce`` over
+the group.  The CG state is replicated, so its dot products need none.
+``parallel/sharded_ba.py`` splits the observations.  With ``group=None``
+nothing is reduced and every result is the single process's, bit for bit.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 
 from points_matching_tpu_torch.ba.lm import LMStats, lm_loop, retract, robust_cost
 from points_matching_tpu_torch.ba.residuals import huber_weights, projection_jacobians
-from points_matching_tpu_torch.ba.schur import _damp, _inv3, pcg
+from points_matching_tpu_torch.ba.schur import _damp, _inv3, _preduce, pcg
 from points_matching_tpu_torch.core.config import BAConfig
 from points_matching_tpu_torch.core.device import pin_fp32
 from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
@@ -141,8 +148,9 @@ def _outer2(A: Tensor, B: Tensor) -> Tensor:
 
 
 def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
-                                  Jl: Tensor, weights: Tensor) -> SparseNormalEq:
-    """Scatter-add assembly of the GN blocks; weights [O] (robust × valid)."""
+                                  Jl: Tensor, weights: Tensor, group=None) -> SparseNormalEq:
+    """Scatter-add assembly of the GN blocks; weights [O] (robust × valid).
+    With ``group``, U/V/bc/bl are reduced over it; Wo/cam/lm stay local."""
     C, L = state.num_cameras, state.num_landmarks
     cam = state.cam_idx.long().clamp(0, C - 1)
     lm = state.lm_idx.long().clamp(0, L - 1)
@@ -154,22 +162,25 @@ def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
     wr = r * weights[:, None]
     bco = -(Jc[:, 0] * wr[:, 0:1] + Jc[:, 1] * wr[:, 1:2])
     blo = -(Jl[:, 0] * wr[:, 0:1] + Jl[:, 1] * wr[:, 1:2])
-    return SparseNormalEq(U=_seg_sum(Uo, cam, C), V=_seg_sum(Vo, lm, L), Wo=Wo,
-                          bc=_seg_sum(bco, cam, C), bl=_seg_sum(blo, lm, L),
-                          cam=cam, lm=lm)
+    return SparseNormalEq(U=_preduce(_seg_sum(Uo, cam, C), group),
+                          V=_preduce(_seg_sum(Vo, lm, L), group), Wo=Wo,
+                          bc=_preduce(_seg_sum(bco, cam, C), group),
+                          bl=_preduce(_seg_sum(blo, lm, L), group), cam=cam, lm=lm)
 
 
-def sparse_schur_matvec(eq: SparseNormalEq, Vinv: Tensor, lam, x: Tensor) -> Tensor:
+def sparse_schur_matvec(eq: SparseNormalEq, Vinv: Tensor, lam, x: Tensor,
+                        group=None) -> Tensor:
     """Implicit S @ x = (U − W V⁻¹ Wᵀ) x via two scatter-adds.  [C, 6]."""
     C, L = eq.U.shape[0], eq.V.shape[0]
     Ux = (_damp(eq.U, lam) * x[:, None, :]).sum(-1)
-    t = _seg_sum((eq.Wo * x[eq.cam][:, :, None]).sum(1), eq.lm, L)      # [L, 3]
+    t = _preduce(_seg_sum((eq.Wo * x[eq.cam][:, :, None]).sum(1), eq.lm, L), group)
     u = (Vinv * t[:, None, :]).sum(2)
-    y = _seg_sum((eq.Wo * u[eq.lm][:, None, :]).sum(2), eq.cam, C)      # [C, 6]
+    y = _preduce(_seg_sum((eq.Wo * u[eq.lm][:, None, :]).sum(2), eq.cam, C), group)
     return Ux - y
 
 
-def _sparse_schur_prep(eq: SparseNormalEq, lam, lm_fixed: Optional[Tensor] = None):
+def _sparse_schur_prep(eq: SparseNormalEq, lam, lm_fixed: Optional[Tensor] = None,
+                       group=None):
     """Damped V⁻¹ (zero on ``lm_fixed`` rows), the reduced gradient g, and
     the Jacobi preconditioner (inverse 6×6 diagonal blocks of S)."""
     C = eq.U.shape[0]
@@ -177,48 +188,54 @@ def _sparse_schur_prep(eq: SparseNormalEq, lam, lm_fixed: Optional[Tensor] = Non
     if lm_fixed is not None:
         Vinv = torch.where(lm_fixed[:, None, None], torch.zeros_like(Vinv), Vinv)
     Vb = (Vinv * eq.bl[:, None, :]).sum(2)
-    g = eq.bc - _seg_sum((eq.Wo * Vb[eq.lm][:, None, :]).sum(2), eq.cam, C)
+    g = eq.bc - _preduce(_seg_sum((eq.Wo * Vb[eq.lm][:, None, :]).sum(2), eq.cam, C), group)
     Vv = Vinv[eq.lm]                                                    # [O, 3, 3]
     WV = (eq.Wo[:, :, :, None] * Vv[:, None, :, :]).sum(2)             # [O, 6, 3]
     WVWo = (WV[:, :, None, :] * eq.Wo[:, None, :, :]).sum(3)           # [O, 6, 6]
-    S_diag = _damp(eq.U, lam) - _seg_sum(WVWo, eq.cam, C)
+    S_diag = _damp(eq.U, lam) - _preduce(_seg_sum(WVWo, eq.cam, C), group)
     return Vinv, g, torch.linalg.inv_ex(S_diag)[0]
 
 
 def solve_sparse_schur_pcg(eq: SparseNormalEq, lam, iterations: int = 50,
-                           lm_fixed: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                           lm_fixed: Optional[Tensor] = None,
+                           group=None) -> Tuple[Tensor, Tensor]:
     """Jacobi-preconditioned CG on the implicit reduced camera system +
     landmark back-substitution → (dc [C, 6], dl [L, 3]; ``lm_fixed`` rows
     of dl exactly 0)."""
     L = eq.V.shape[0]
-    Vinv, g, Minv = _sparse_schur_prep(eq, lam, lm_fixed)
-    dc = pcg(lambda x: sparse_schur_matvec(eq, Vinv, lam, x),
+    Vinv, g, Minv = _sparse_schur_prep(eq, lam, lm_fixed, group)
+    dc = pcg(lambda x: sparse_schur_matvec(eq, Vinv, lam, x, group),
              lambda r: (Minv * r[:, None, :]).sum(-1), g, iterations)
-    rhs = eq.bl - _seg_sum((eq.Wo * dc[eq.cam][:, :, None]).sum(1), eq.lm, L)
+    rhs = eq.bl - _preduce(_seg_sum((eq.Wo * dc[eq.cam][:, :, None]).sum(1), eq.lm, L),
+                           group)
     return dc, (Vinv * rhs[:, None, :]).sum(2)
 
 
 def sparse_ba_cost(state: SparseBAState, K: CameraIntrinsics,
-                   huber_delta: float = 0.0) -> Tensor:
-    return robust_cost(sparse_residuals(state, K), state.obs_mask, huber_delta)
+                   huber_delta: float = 0.0, group=None) -> Tensor:
+    return _preduce(robust_cost(sparse_residuals(state, K), state.obs_mask, huber_delta),
+                    group)
 
 
 def bundle_adjust_sparse(state: SparseBAState, K: CameraIntrinsics,
-                         config: BAConfig = BAConfig()
+                         config: BAConfig = BAConfig(), group=None
                          ) -> Tuple[SparseBAState, SparseLMStats]:
     """LM on observation lists — the contract of ``ba.lm.bundle_adjust``
     (monotone cost, same stopping rule) at O(observations) memory.  The
-    solver is always the implicit-Schur PCG (``config.pcg_iterations``)."""
+    solver is always the implicit-Schur PCG (``config.pcg_iterations``).
+    With ``group``, ``state``'s observations are this rank's shard and the
+    sums are completed over the group (module docstring); every rank then
+    holds the same poses, landmarks and stats."""
     pin_fp32()
 
     def step(st: SparseBAState, lam: Tensor) -> SparseBAState:
         r, Jc, Jl = sparse_residuals_and_jacobians(st, K)
         w = huber_weights(r, config.huber_delta) * st.obs_mask.to(r.dtype)
-        eq = build_sparse_normal_equations(st, r, Jc, Jl, w)
+        eq = build_sparse_normal_equations(st, r, Jc, Jl, w, group)
         dc, dl = solve_sparse_schur_pcg(eq, lam, config.pcg_iterations,
-                                        lm_fixed=st.lm_fixed)
+                                        lm_fixed=st.lm_fixed, group=group)
         return dataclasses.replace(st, poses=retract(st.poses, st.cam_fixed, dc),
                                    X=st.X + dl)
 
-    return lm_loop(state, lambda st: sparse_ba_cost(st, K, config.huber_delta),
+    return lm_loop(state, lambda st: sparse_ba_cost(st, K, config.huber_delta, group),
                    step, config)

@@ -26,6 +26,15 @@
 // (512-bit); the wrapper pads any narrower width with zero words up to the
 // next of these, which adds no bits to any XOR.
 //
+// Wider rows (W > 16, padded with zero words to a multiple of 8) take the
+// chunked kernel: the same grid and rows a thread, but a train tile of 32
+// rows is consumed in W / 8 steps of one 8-word chunk each (the query rows'
+// chunk read from global memory, the tile's from a double-buffered ring in
+// shared memory).  Each thread keeps a count per (query row, tile row) in
+// registers across the chunks, and a count enters the top-2 only after the
+// tile's last chunk: the counts are exact integer sums, so every result is
+// the fast path's.
+//
 // Top-2: each thread visits its columns in increasing order with the strict
 // `<` update (PmtTop2::push) from the sentinels (kSentinel, 0).  With S = 1
 // the block writes the result; with S > 1 it leaves a partial (d1, i1, d2,
@@ -176,6 +185,109 @@ hamming_top2_kernel(const uint32_t* __restrict__ q,
   }
 }
 
+// The chunked path (W > 16): 8-word chunks of the width, 32-row tiles.
+constexpr int kChunkWords = 8;
+constexpr int kChunkTileRows = 32;
+
+__global__ void __launch_bounds__(kThreads)
+hamming_top2_chunked_kernel(const uint32_t* __restrict__ q,
+                            const uint32_t* __restrict__ t,
+                            const uint8_t* __restrict__ t_mask,
+                            float* __restrict__ dist, int* __restrict__ idx,
+                            int4* __restrict__ part, int N1, int N2, int W) {
+  constexpr int kPieces = kChunkWords / 4;     // 16-byte pieces of a chunk row
+  __shared__ uint4 ts[2][kChunkTileRows * kPieces];
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z, s = blockIdx.y, S = gridDim.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  int begin, end;
+  pmt_split_range(s, S, N2, &begin, &end);
+  const int ntiles = (end - begin + kChunkTileRows - 1) / kChunkTileRows;
+  const int nchunks = W / kChunkWords;
+  const int nsteps = ntiles * nchunks;
+
+  const uint32_t* qb = q + static_cast<size_t>(b) * N1 * W;
+  const uint32_t* tb = t + static_cast<size_t>(b) * N2 * W;
+  const uint8_t* mb = t_mask + static_cast<size_t>(b) * N2;
+
+  // step st stages chunk st % nchunks of train tile st / nchunks
+  auto stage = [&](int st, int buf) {
+    const int tile = st / nchunks, col = (st - tile * nchunks) * kChunkWords;
+    const int base = begin + tile * kChunkTileRows;
+    const int n = min(kChunkTileRows, end - base) * kPieces;
+    for (int e = tid; e < n; e += kThreads) {
+      const int r = e / kPieces, c = e % kPieces;
+      pmt_cp_async16(&ts[buf][e], reinterpret_cast<const uint4*>(
+                                      tb + static_cast<size_t>(base + r) * W + col) + c);
+    }
+  };
+  if (nsteps > 0) stage(0, 0);
+  pmt_cp_async_commit();
+
+  PmtTop2<int> best[kRowsPerThread];
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) best[h] = PmtTop2<int>::empty(kSentinel);
+  int acc[kRowsPerThread][kChunkTileRows];
+
+  for (int st = 0; st < nsteps; ++st) {
+    const int buf = st & 1;
+    const int it = st / nchunks, c = st - it * nchunks;
+    if (st + 1 < nsteps) stage(st + 1, buf ^ 1);
+    pmt_cp_async_commit();
+    uint4 qw[kRowsPerThread][kPieces];
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; ++h) {
+      const int row = row0 + tid + h * kThreads;
+      const uint4* qv = reinterpret_cast<const uint4*>(
+          qb + static_cast<size_t>(row) * W + c * kChunkWords);
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) qw[h][k] = row < N1 ? qv[k] : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (c == 0) {
+#pragma unroll
+      for (int h = 0; h < kRowsPerThread; ++h)
+#pragma unroll
+        for (int r = 0; r < kChunkTileRows; ++r) acc[h][r] = 0;
+    }
+    pmt_cp_async_wait<1>();                    // step st has landed
+    __syncthreads();
+
+    const uint4* tv = ts[buf];
+#pragma unroll
+    for (int r = 0; r < kChunkTileRows; ++r) {
+      uint4 u[kPieces];
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) u[k] = tv[kPieces * r + k];
+#pragma unroll
+      for (int h = 0; h < kRowsPerThread; ++h) acc[h][r] += hamming<kChunkWords>(qw[h], u);
+    }
+    if (c == nchunks - 1) {
+      const int base = begin + it * kChunkTileRows;
+#pragma unroll
+      for (int r = 0; r < kChunkTileRows; ++r) {   // columns in increasing order
+        const int j = base + r;
+        if (j >= end) break;
+        const int bb = mb[j] ? 0 : kSentinel;
+#pragma unroll
+        for (int h = 0; h < kRowsPerThread; ++h) best[h].push(acc[h][r] + bb, j);
+      }
+    }
+    __syncthreads();                           // step consumed before refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) {
+    const int row = row0 + tid + h * kThreads;
+    if (row >= N1) continue;
+    const size_t o = static_cast<size_t>(b) * N1 + row;
+    if (S == 1)
+      write_result(best[h], o, dist, idx);
+    else
+      part[(static_cast<size_t>(b) * S + s) * N1 + row] = pmt_pack(best[h]);
+  }
+}
+
 // one thread per (pair, query row): the S partials merged in split order
 __global__ void __launch_bounds__(kMergeThreads)
 hamming_top2_merge_kernel(const int4* __restrict__ part, float* __restrict__ dist,
@@ -196,13 +308,15 @@ hamming_top2_merge_kernel(const int4* __restrict__ part, float* __restrict__ dis
 }  // namespace
 
 // q [B, N1, W] u32, t [B, N2, W] u32, t_mask [B, N2] bool →
-// dist [B, N1, 2] f32 counts, idx [B, N1, 2] i32.  W must be 8 or 16.  S
+// dist [B, N1, 2] f32 counts, idx [B, N1, 2] i32.  W must be 8, 16 or a
+// multiple of 8 above 16 (the chunked kernel).  S
 // train splits; with S > 1, part [B, S, N1] int4 is the wrapper's scratch.
 // Returns the status of the launches.
 PMT_EXPORT int pmt_hamming_top2(const void* q, const void* t, const void* t_mask,
                                 void* dist, void* idx, void* part, int B, int N1,
                                 int N2, int W_in, int S, void* stream) {
-  if ((W_in != 8 && W_in != 16) || S < 1 || S > 65535 || B > 65535 ||
+  const bool chunked = W_in > 16 && W_in % kChunkWords == 0;
+  if ((W_in != 8 && W_in != 16 && !chunked) || S < 1 || S > 65535 || B > 65535 ||
       (S > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
@@ -211,7 +325,11 @@ PMT_EXPORT int pmt_hamming_top2(const void* q, const void* t, const void* t_mask
   const auto* qu = static_cast<const uint32_t*>(q);
   const auto* tu = static_cast<const uint32_t*>(t);
   const auto* mu = static_cast<const uint8_t*>(t_mask);
-  if (W_in == 16)
+  if (chunked)
+    hamming_top2_chunked_kernel<<<grid, kThreads, 0, st>>>(
+        qu, tu, mu, static_cast<float*>(dist), static_cast<int*>(idx),
+        static_cast<int4*>(part), N1, N2, W_in);
+  else if (W_in == 16)
     hamming_top2_kernel<16><<<grid, kThreads, 0, st>>>(
         qu, tu, mu, static_cast<float*>(dist), static_cast<int*>(idx),
         static_cast<int4*>(part), N1, N2);

@@ -32,6 +32,17 @@
 // up to the next of these, which changes no distance (a zero column adds 0
 // to ⟨q,t⟩, ‖q‖² and ‖t‖²).
 //
+// Wider rows (D > 128, padded with zero columns to a multiple of 64) take the
+// chunked kernel: the same grid, block, lanes and micro-tiles, but shared
+// memory holds one 64-float chunk of the block's query rows and of a train
+// tile, double-buffered, and a train tile is consumed in D / 64 steps.  A
+// cell's accumulator stays in registers across the chunks of its tile and
+// enters the top-2 only after the last one, so each cell is still ONE fmaf
+// chain over k = 0..D−1 in order and the split merge stays exact.  The query
+// chunks are re-read for every train tile (from L2; 105 KB of shared memory
+// a block, two blocks an SM).  ‖q‖² and ‖t‖² add the chunks' four-lane sums
+// in chunk order.
+//
 // Top-2: each thread visits its columns in increasing order with the strict
 // `<` update (PmtTop2::push), starting from the sentinels (1e30, 0); the 4
 // lanes that share query rows merge lexicographically by (d, column)
@@ -277,6 +288,191 @@ l2_top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
   }
 }
 
+// The chunked path (D > 128): 64-float chunks of the width.
+constexpr int kChunk = 64;
+constexpr int kChunkLD = kChunk + 4;      // padded shared-memory row, in floats
+constexpr int kChunkSmemBytes =            // 105,216
+    (2 * (kRowsPerBlock + kTileCols) * kChunkLD + kTileCols + kRowsPerBlock) * 4;
+
+template <bool BF16, bool POINTS>
+__global__ void __launch_bounds__(kThreads, 2)
+l2_top2_chunked_kernel(const float* __restrict__ q, const float* __restrict__ t,
+                       const uint8_t* __restrict__ t_mask,
+                       const float* __restrict__ t_points, float* __restrict__ dist,
+                       int* __restrict__ idx, float* __restrict__ pts,
+                       int4* __restrict__ part, float* __restrict__ q2buf, int N1,
+                       int N2, int D, int P) {
+  constexpr int LD = kChunkLD;
+  constexpr int kPieces = kChunk / 4;    // 16-byte pieces of a chunk row
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                // [2][kRowsPerBlock][LD]
+  float* ts = qs + 2 * kRowsPerBlock * LD;         // [2][kTileCols][LD]
+  float* t2s = ts + 2 * kTileCols * LD;            // [kTileCols]
+  float* q2s = t2s + kTileCols;                    // [kRowsPerBlock]
+
+  const int tid = threadIdx.x;
+  const int qg = tid & 7, cg = (tid >> 3) & 3, w = tid >> 5;
+  const int pr = tid >> 2, pq = tid & 3;
+  const int b = blockIdx.z, s = blockIdx.y, S = gridDim.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  int begin, end;
+  pmt_split_range(s, S, N2, &begin, &end);
+  const int ntiles = (end - begin + kTileCols - 1) / kTileCols;
+  const int nchunks = D / kChunk;
+  const int nsteps = ntiles * nchunks;
+
+  const float* qb = q + static_cast<size_t>(b) * N1 * D;
+  const float* tb = t + static_cast<size_t>(b) * N2 * D;
+  const uint8_t* mb = t_mask + static_cast<size_t>(b) * N2;
+
+  // step st stages chunk st % nchunks of the query rows and of train tile
+  // st / nchunks; rows past the end are zero-filled, as on the fast path
+  auto stage = [&](int st, int buf) {
+    const int tile = st / nchunks, col = (st - tile * nchunks) * kChunk;
+    float* qd = qs + buf * kRowsPerBlock * LD;
+    for (int e = tid; e < kRowsPerBlock * kPieces; e += kThreads) {
+      const int r = e / kPieces, c = 4 * (e % kPieces);
+      const bool ok = row0 + r < N1;
+      pmt_cp_async16_zfill(&qd[r * LD + c],
+                           ok ? qb + static_cast<size_t>(row0 + r) * D + col + c : q, ok);
+    }
+    const int base = begin + tile * kTileCols;
+    float* td = ts + buf * kTileCols * LD;
+    for (int e = tid; e < kTileCols * kPieces; e += kThreads) {
+      const int r = e / kPieces, c = 4 * (e % kPieces);
+      const bool ok = base + r < end;
+      pmt_cp_async16_zfill(&td[r * LD + c],
+                           ok ? tb + static_cast<size_t>(base + r) * D + col + c : t, ok);
+    }
+  };
+  if (nsteps > 0) stage(0, 0);
+  pmt_cp_async_commit();
+
+  // ‖q‖² from global memory, chunk by chunk: lane pq sums its 16 floats of a
+  // chunk in one chain, the four lanes combine as (s0 + s1) + (s2 + s3), the
+  // chunks add in order
+  float q2acc[kRowsPerBlock / kPrepRows];
+#pragma unroll
+  for (int h = 0; h < kRowsPerBlock / kPrepRows; ++h) q2acc[h] = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+#pragma unroll
+    for (int h = 0; h < kRowsPerBlock / kPrepRows; ++h) {
+      const int r = row0 + pr + kPrepRows * h;
+      float sum = 0.f;
+      if (r < N1) {
+        const float4* x = reinterpret_cast<const float4*>(
+            qb + static_cast<size_t>(r) * D + c * kChunk + (kChunk / 4) * pq);
+#pragma unroll
+        for (int i = 0; i < kChunk / 16; ++i) {
+          const float4 v = x[i];
+          sum = fmaf(v.x, v.x, sum);
+          sum = fmaf(v.y, v.y, sum);
+          sum = fmaf(v.z, v.z, sum);
+          sum = fmaf(v.w, v.w, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      q2acc[h] += sum;
+    }
+  }
+  if (pq == 0) {
+#pragma unroll
+    for (int h = 0; h < kRowsPerBlock / kPrepRows; ++h) q2s[pr + kPrepRows * h] = q2acc[h];
+  }
+
+  PmtTop2<float> best[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) best[r] = PmtTop2<float>::empty(kPmtBig);
+  float acc[4][16];
+  float t2acc[kTileCols / kPrepRows];
+
+  for (int st = 0; st < nsteps; ++st) {
+    const int buf = st & 1;
+    const int it = st / nchunks, c = st - it * nchunks;
+    pmt_cp_async_wait<0>();                    // step st has landed
+    __syncthreads();                           // ... for all; step st-1 consumed
+    if (st + 1 < nsteps) stage(st + 1, buf ^ 1);
+    pmt_cp_async_commit();
+    float* qd = qs + buf * kRowsPerBlock * LD;
+    float* td = ts + buf * kTileCols * LD;
+    if (c == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
+#pragma unroll
+      for (int h = 0; h < kTileCols / kPrepRows; ++h) t2acc[h] = 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < kTileCols / kPrepRows; ++h)
+      t2acc[h] += prep_row<kChunk, BF16>(&td[(pr + kPrepRows * h) * LD], pq);
+    if (BF16) {
+#pragma unroll
+      for (int h = 0; h < kRowsPerBlock / kPrepRows; ++h)
+        prep_row<kChunk, true>(&qd[(pr + kPrepRows * h) * LD], pq);
+    }
+    const int base = begin + it * kTileCols;
+    if (c == nchunks - 1 && pq == 0) {
+#pragma unroll
+      for (int h = 0; h < kTileCols / kPrepRows; ++h) {
+        const int j = base + pr + kPrepRows * h;
+        t2s[pr + kPrepRows * h] = j < end && mb[j] ? t2acc[h] : kPmtBig;
+      }
+    }
+    __syncthreads();                           // chunk sums and rounding done
+
+    const float* qrow = &qd[(32 * w + qg) * LD];
+    const float* tcol = &td[cg * LD];
+#pragma unroll 2
+    for (int k = 0; k < kChunk; k += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(qrow + 8 * r * LD + k);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(tcol + 4 * j * LD + k);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(a[r].x, v.x, acc[r][j]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(a[r].y, v.y, acc[r][j]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(a[r].z, v.z, acc[r][j]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(a[r].w, v.w, acc[r][j]);
+      }
+    }
+    if (c == nchunks - 1) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {           // columns in increasing order
+        const float t2 = t2s[cg + 4 * j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) best[r].push(t2 - 2.0f * acc[r][j], base + cg + 4 * j);
+      }
+    }
+  }
+  __syncthreads();                             // q2s is visible with no step too
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    best[r].merge_lane(8);
+    best[r].merge_lane(16);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int lr = 32 * w + qg + 8 * r;
+    if (cg != r || row0 + lr >= N1) continue;
+    const size_t o = static_cast<size_t>(b) * N1 + row0 + lr;
+    if (S == 1) {
+      write_result<POINTS>(best[r], q2s[lr], o, b, t_points, dist, idx, pts, N2, P);
+    } else {
+      part[(static_cast<size_t>(b) * S + s) * N1 + row0 + lr] = pmt_pack(best[r]);
+      if (s == 0) q2buf[o] = q2s[lr];
+    }
+  }
+}
+
 // one thread per (pair, query row): the S partials merged in split order
 template <bool POINTS>
 __global__ void __launch_bounds__(kMergeThreads)
@@ -297,17 +493,25 @@ l2_top2_merge_kernel(const int4* __restrict__ part, const float* __restrict__ q2
   write_result<POINTS>(best, q2buf[o], o, b, t_points, dist, idx, pts, N2, P);
 }
 
+// D = 0: the chunked kernel over Dc columns (a multiple of kChunk)
 template <int D, bool BF16, bool POINTS>
 void launch(const float* q, const float* t, const uint8_t* t_mask,
             const float* t_points, float* dist, int* idx, float* pts, int4* part,
-            float* q2buf, int B, int N1, int N2, int P, int S,
+            float* q2buf, int B, int N1, int N2, int Dc, int P, int S,
             cudaStream_t stream) {
   const dim3 grid((N1 + kRowsPerBlock - 1) / kRowsPerBlock, S, B);
-  constexpr int kSmemBytes = smem_bytes<D>();
-  cudaFuncSetAttribute(l2_top2_kernel<D, BF16, POINTS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  l2_top2_kernel<D, BF16, POINTS><<<grid, kThreads, kSmemBytes, stream>>>(
-      q, t, t_mask, t_points, dist, idx, pts, part, q2buf, N1, N2, P);
+  if constexpr (D == 0) {
+    cudaFuncSetAttribute(l2_top2_chunked_kernel<BF16, POINTS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kChunkSmemBytes);
+    l2_top2_chunked_kernel<BF16, POINTS><<<grid, kThreads, kChunkSmemBytes, stream>>>(
+        q, t, t_mask, t_points, dist, idx, pts, part, q2buf, N1, N2, Dc, P);
+  } else {
+    constexpr int kSmemBytes = smem_bytes<D>();
+    cudaFuncSetAttribute(l2_top2_kernel<D, BF16, POINTS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    l2_top2_kernel<D, BF16, POINTS><<<grid, kThreads, kSmemBytes, stream>>>(
+        q, t, t_mask, t_points, dist, idx, pts, part, q2buf, N1, N2, P);
+  }
   if (S > 1) {
     const size_t rows = static_cast<size_t>(B) * N1;
     const unsigned blocks = static_cast<unsigned>((rows + kMergeThreads - 1) / kMergeThreads);
@@ -320,7 +524,8 @@ void launch(const float* q, const float* t, const uint8_t* t_mask,
 
 // q [B, N1, D] f32, t [B, N2, D] f32, t_mask [B, N2] bool,
 // t_points [B, N2, P] f32 or NULL → dist [B, N1, 2] f32, idx [B, N1, 2] i32,
-// pts [B, N1, P] f32 (when t_points is given).  D must be 32, 64 or 128.  S train
+// pts [B, N1, P] f32 (when t_points is given).  D must be 32, 64, 128 or a
+// multiple of 64 above 128 (the chunked kernel).  S train
 // splits; with S > 1, part [B, S, N1] int4 and q2buf [B, N1] f32 are the
 // wrapper's scratch.  Returns the status of the launches.
 PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
@@ -328,7 +533,9 @@ PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
                            void* pts, void* part, void* q2buf, int B, int N1,
                            int N2, int D_in, int P, int S, int bf16,
                            void* stream) {
-  if ((D_in != 32 && D_in != 64 && D_in != 128) || S < 1 || S > 65535 || B > 65535 ||
+  const bool chunked = D_in > 128 && D_in % kChunk == 0;
+  if ((D_in != 32 && D_in != 64 && D_in != 128 && !chunked) || S < 1 || S > 65535 ||
+      B > 65535 ||
       (S > 1 && (part == nullptr || q2buf == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N1 == 0) return 0;
@@ -345,14 +552,15 @@ PMT_EXPORT int pmt_l2_top2(const void* q, const void* t, const void* t_mask,
   const auto go = [&](auto d) {
     constexpr int kD = decltype(d)::value;
     if (bf16) {
-      if (tp) launch<kD, true, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
-      else launch<kD, true, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+      if (tp) launch<kD, true, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, D_in, P, S, st);
+      else launch<kD, true, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, D_in, P, S, st);
     } else {
-      if (tp) launch<kD, false, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
-      else launch<kD, false, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, P, S, st);
+      if (tp) launch<kD, false, true>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, D_in, P, S, st);
+      else launch<kD, false, false>(qf, tf, mf, tp, df, xi, pf, pa, q2, B, N1, N2, D_in, P, S, st);
     }
   };
-  if (D_in == 128) go(std::integral_constant<int, 128>{});
+  if (chunked) go(std::integral_constant<int, 0>{});
+  else if (D_in == 128) go(std::integral_constant<int, 128>{});
   else if (D_in == 64) go(std::integral_constant<int, 64>{});
   else go(std::integral_constant<int, 32>{});
   PMT_RETURN_LAUNCH_STATUS();

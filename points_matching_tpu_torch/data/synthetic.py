@@ -7,7 +7,8 @@ same distributions, so the scenes are alike but not equal.
 ``make_sparse_ba_problem`` is numpy with a seed in both packages and gives
 the same problem to f32 rounding.  ``make_tracked_sequence`` is the
 synthetic SfM sequence of tests/test_sfm.py and the JAX bench's ``sfm``
-section, in numpy with the same draws.
+section, in numpy with the same draws, and ``make_stacked_sequence`` is
+BASELINE config 4's stand-in (tests/test_distributed_slam.py), likewise.
 """
 from __future__ import annotations
 
@@ -215,3 +216,57 @@ def make_tracked_sequence(num_frames: int, *, device, num_landmarks: int = 300,
     K = CameraIntrinsics(*(torch.tensor(v, dtype=torch.float32, device=device)
                            for v in (f, f, w / 2, h / 2)))
     return frames, K, torch.from_numpy(np.stack(centers).astype(np.float32))
+
+
+def make_stacked_sequence(num_frames: int = 16, *, device, num_landmarks: int = 400,
+                          n_feat: int = 256, seed: int = 0, px_noise: float = 0.3,
+                          desc_dim: int = 32, corridor: bool = False):
+    """BASELINE config 4's stand-in, tests/test_distributed_slam.py's
+    ``_make_stacked_sequence`` in numpy with the same draws: landmarks spread
+    along a forward corridor (``corridor``; else a 10 × 6 × 8 box), the
+    camera moving 0.3 a frame along x with a bounded yaw, up to ``n_feat``
+    visible landmarks a frame with ``px_noise`` pixels of noise and noisy
+    unit descriptors.  Config 4's stand-in is ``num_frames=272,
+    num_landmarks=3000, seed=5, corridor=True``.
+
+    Returns (kps [F, N, 2], desc [F, N, D], mask [F, N]) on ``device``, K
+    (CameraIntrinsics on ``device``) and the ground-truth centres [F, 3] as
+    numpy.
+    """
+    rng = np.random.RandomState(seed)
+    w, h = 640, 480
+    fx = fy = 500.0
+    if corridor:
+        x_hi = 0.3 * num_frames + 6.0
+        X = np.stack([rng.uniform(-6.0, x_hi, num_landmarks),
+                      rng.uniform(-3.0, 3.0, num_landmarks),
+                      rng.uniform(6.0, 14.0, num_landmarks)], axis=-1).astype(np.float32)
+    else:
+        X = rng.uniform([-5, -3, 6], [5, 3, 14], (num_landmarks, 3)).astype(np.float32)
+    desc_gt = rng.randn(num_landmarks, desc_dim).astype(np.float32)
+    desc_gt /= np.linalg.norm(desc_gt, axis=-1, keepdims=True)
+    kps = np.zeros((num_frames, n_feat, 2), np.float32)
+    dsc = np.zeros((num_frames, n_feat, desc_dim), np.float32)
+    msk = np.zeros((num_frames, n_feat), bool)
+    centers = []
+    for i in range(num_frames):
+        ang = 0.05 * np.sin(0.05 * i) if corridor else 0.015 * i
+        R = so3_exp(torch.tensor([0.0, ang, 0.0], dtype=torch.float32)).numpy()
+        t = np.asarray([-0.3 * i, 0.0, 0.0], np.float32)
+        centers.append(-(R.T @ t))
+        Xc = X @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:3] * np.asarray([fx, fy]) + np.asarray([w / 2, h / 2])
+        vis = (Xc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & \
+              (uv[:, 1] >= 0) & (uv[:, 1] < h)
+        idx = np.nonzero(vis)[0]
+        rng.shuffle(idx)
+        idx = idx[:n_feat]
+        k = len(idx)
+        kps[i, :k] = uv[idx] + px_noise * rng.randn(k, 2)
+        d = desc_gt[idx] + 0.05 * rng.randn(k, desc_dim).astype(np.float32)
+        dsc[i, :k] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        msk[i, :k] = True
+    K = CameraIntrinsics(*(torch.tensor(v, dtype=torch.float32, device=device)
+                           for v in (fx, fy, w / 2, h / 2)))
+    return (torch.from_numpy(kps).to(device), torch.from_numpy(dsc).to(device),
+            torch.from_numpy(msk).to(device), K, np.stack(centers))

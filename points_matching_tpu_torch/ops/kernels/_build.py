@@ -123,18 +123,19 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def pad_width(x, built: Tuple[int, ...], what: str):
-    """``x`` [..., n] with zeros appended on its last axis up to the
-    narrowest width in ``built`` that holds n (``x`` itself when n is
-    built).  The matchers' widths pad exactly: a zero column adds 0 to
-    ⟨q,t⟩, ‖q‖² and ‖t‖², a zero word no bits to an XOR.  Above the widest
-    built width this raises: splitting the width is no repair, since a
-    top-2 over summed distances does not merge from per-chunk top-2s."""
+def pad_width(x, built: Tuple[int, ...], chunk: int):
+    """``x`` [..., n] with zeros appended on its last axis: up to the
+    narrowest width in ``built`` that holds n, or, above the widest, up to a
+    whole number of ``chunk``-wide chunks (the kernels' chunked path); ``x``
+    itself when n is already such a width.  The matchers' widths pad
+    exactly: a zero column adds 0 to ⟨q,t⟩, ‖q‖² and ‖t‖², a zero word no
+    bits to an XOR.  The chunked kernels loop over the width inside a cell's
+    sum, which ends before the cell reaches the top-2, so no width is too
+    wide."""
     n = x.shape[-1]
     width = next((w for w in built if w >= n), None)
     if width is None:
-        raise ValueError(f"the CUDA kernel is built for {what} in {built}; "
-                         f"{what} = {n} is wider than the widest")
+        width = -(-n // chunk) * chunk
     if width == n:
         return x
     import torch.nn.functional as F

@@ -19,7 +19,9 @@ wrapper takes a leading pair axis, launches the kernel for CUDA tensors and
 runs the plain PyTorch version (``hamming_top2_plain``) for CPU tensors.
 The kernel is built for W ∈ ``BUILT_WORDS``; on the card the wrapper pads
 any narrower W with zero words up to the next built width, which adds no
-bits, and raises above the widest.
+bits.  Above the widest, W is padded to a multiple of ``CHUNK_WORDS`` and
+the chunked kernel sums each distance over the chunks before it enters the
+top-2, so any W runs.
 
 Semantics (distances are small integers, so ties are the normal case):
 both distance columns and both index columns (the lowest column attaining
@@ -43,6 +45,7 @@ _BIG = 1e30
 # word counts the kernel is built for (8: 256-bit ORB/BRIEF, 16: 512-bit);
 # the wrapper pads narrower ones with zero words
 BUILT_WORDS = (8, 16)
+CHUNK_WORDS = 8         # width chunk of the kernel above 16: kChunkWords in hamming_top2.cu
 ROWS_PER_BLOCK = 256    # query rows of a block: kRowsPerBlock in hamming_top2.cu
 MIN_SPLIT_COLS = 16     # train columns a split keeps at least
 
@@ -109,8 +112,9 @@ def fused_hamming_top2(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Te
         raise ValueError(f"unsupported device {q.device}")
     if not all(x.is_contiguous() for x in (q, t, t_mask)):
         raise ValueError("the CUDA kernel needs contiguous inputs")
-    # zero words up to the next built width (a fresh, aligned copy)
-    q, t = (_build.pad_width(x, BUILT_WORDS, "W") for x in (q, t))
+    # zero words up to the next built width or whole chunk (a fresh,
+    # aligned copy)
+    q, t = (_build.pad_width(x, BUILT_WORDS, CHUNK_WORDS) for x in (q, t))
     if q.data_ptr() % 16 or t.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs 16-byte aligned q and t")
     lib = _build.library()

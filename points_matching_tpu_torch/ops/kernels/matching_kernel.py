@@ -17,7 +17,9 @@ Each wrapper takes a leading pair axis, launches the kernel for CUDA
 tensors, and runs the plain PyTorch version (``*_plain``) for CPU tensors.
 The kernel is built for D ∈ ``BUILT_DIMS``; on the card the wrapper pads
 any narrower D with zero columns up to the next built width, which changes
-no distance and no index, and raises above the widest.
+no distance and no index.  Above the widest, D is padded to a multiple of
+``CHUNK_DIM`` and the chunked kernel loops over the width inside each
+cell's sum (still one fmaf chain over k in order), so any D runs.
 The plain version is the same function written with ``torch.matmul`` and
 two argmin passes; the tests hold it against the JAX kernel in interpret
 mode, and ``chip_smoke.py`` holds the kernel against it on the card.
@@ -37,6 +39,7 @@ MIN_SPLIT_COLS = 8      # train columns a split keeps at least
 # descriptor widths the CUDA kernel is instantiated for (32: the synthetic
 # SfM sequences, 64: SURF, 128: SIFT); the wrapper pads narrower ones
 BUILT_DIMS = (32, 64, 128)
+CHUNK_DIM = 64          # width chunk of the kernel above 128: kChunk in matching_top2.cu
 
 
 def _check_inputs(q: Tensor, t: Tensor, t_mask: Tensor,
@@ -98,8 +101,9 @@ def _launch(q, t, t_mask, t_points, compute_dtype):
     for x in (q, t, t_mask, t_points):
         if x is not None and not x.is_contiguous():
             raise ValueError("the CUDA kernel needs contiguous inputs")
-    # zero columns up to the next built width (a fresh, aligned copy)
-    q, t = (_build.pad_width(x, BUILT_DIMS, "D") for x in (q, t))
+    # zero columns up to the next built width or whole chunk (a fresh,
+    # aligned copy)
+    q, t = (_build.pad_width(x, BUILT_DIMS, CHUNK_DIM) for x in (q, t))
     if q.data_ptr() % 16 or t.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs 16-byte aligned q and t")
     lib = _build.library()

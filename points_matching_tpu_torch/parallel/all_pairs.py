@@ -1,23 +1,30 @@
 """All-pairs descriptor matching scores (BASELINE config 1's all-pairs
 sweep; the covisibility statistic of loop detection) — port of
-``points_matching_tpu/parallel/all_pairs.py`` in its single-process form
-(the reference at ``mesh=None``; the ring over devices comes with the
-port's process groups).
+``points_matching_tpu/parallel/all_pairs.py``.
 
 Pair score = the number of query rows of frame i whose 1-NN in frame j
 passes the ratio test: ``scores[i, j]`` over every ordered pair, the
 diagonal included (callers typically ignore it).
 
-On the card the sweep is kernel K1 (``fused_l2_top2``), which computes
-exactly the per-row squared-L2 top-2 that the reference's
+The ring (the reference's ``_ring_all_pairs``): with a ``mesh``, the frames
+are split over its ``data`` group; every rank scores its query block
+against the train block it holds, then forwards that block one hop with
+``ring_shift``, so after n steps each rank has scored its queries against
+every frame without holding all of them at once.  The score rows are then
+gathered, so every rank returns the full [N, N] matrix.  Without a mesh the
+same ring runs on the no-op backend: one step, the frames against
+themselves.
+
+On the card a block is scored by kernel K1 (``fused_l2_top2``), which
+computes exactly the per-row squared-L2 top-2 that the reference's
 ``_pair_scores_block`` takes with a GEMM and two masked minima.  K1 keeps a
 separate top-2 per (pair, query row) over the pair's train rows, so one
 launch takes the query rows of a block of frames at once (the [Q·K, D]
 rows are a view of ``desc``, nothing is copied) against one train frame:
-its [Q·K] top-2s are column j of the block's scores.  A sweep is N launches
-of ⌈N·K / 128⌉ blocks each (one per train frame and query block of at
-most ``_QUERY_ROWS`` rows), with no gathered copy of any frame; the top-2s
-of ``train_chunk`` train frames are counted together.  On the CPU the
+its [Q·K] top-2s are column j of the block's scores.  A block is one launch
+a train frame, of ⌈Q·K / 128⌉ blocks each (one per query tile of at most
+``_QUERY_ROWS`` rows), with no gathered copy of any frame; the top-2s of
+``train_chunk`` train frames are counted together.  On the CPU the
 reference's block function runs as written (``pair_scores_plain``).
 
 K1 adds ‖q‖² after the top-2 and clamps at 0; the reference adds it
@@ -29,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from points_matching_tpu_torch.ops.kernels.matching_kernel import fused_l2_top2
+from points_matching_tpu_torch.parallel.comm import Comm
+from points_matching_tpu_torch.parallel.mesh import DATA_AXIS, axis_comm, has_axis, shard
 
 Tensor = torch.Tensor
 
@@ -77,19 +86,22 @@ def pair_scores_plain(qd: Tensor, qm: Tensor, td: Tensor, tm: Tensor,
                       for j in range(0, td.shape[0], train_chunk)], 1)
 
 
-def _scores_on_card(desc: Tensor, mask: Tensor, ratio: float, train_chunk: int) -> Tensor:
-    N, K, D = desc.shape
-    desc = desc.contiguous()
-    mask = mask.contiguous()
-    scores = torch.empty((N, N), dtype=torch.int32, device=desc.device)
+def _scores_on_card(qd: Tensor, qm: Tensor, td: Tensor, tm: Tensor, ratio: float,
+                    train_chunk: int) -> Tensor:
+    """[Q, T] scores of query frames ``qd`` against train frames ``td`` on
+    K1: one launch a train frame with every query frame's rows."""
+    Q, K, D = qd.shape
+    T = td.shape[0]
+    qd, qm, td, tm = (x.contiguous() for x in (qd, qm, td, tm))
+    scores = torch.empty((Q, T), dtype=torch.int32, device=qd.device)
     qf = max(1, _QUERY_ROWS // max(K, 1))        # query frames a launch
-    for q0 in range(0, N, qf):
-        q1 = min(N, q0 + qf)
-        rows = desc[q0:q1].reshape(1, (q1 - q0) * K, D)
-        qmask = mask[q0:q1].reshape(-1)
-        for j0 in range(0, N, train_chunk):
-            j1 = min(N, j0 + train_chunk)
-            dist = torch.cat([fused_l2_top2(rows, desc[j:j + 1], mask[j:j + 1])[0]
+    for q0 in range(0, Q, qf):
+        q1 = min(Q, q0 + qf)
+        rows = qd[q0:q1].reshape(1, (q1 - q0) * K, D)
+        qmask = qm[q0:q1].reshape(-1)
+        for j0 in range(0, T, train_chunk):
+            j1 = min(T, j0 + train_chunk)
+            dist = torch.cat([fused_l2_top2(rows, td[j:j + 1], tm[j:j + 1])[0]
                               for j in range(j0, j1)])           # [tc, Q·K, 2]
             best, second = dist[..., 0], dist[..., 1]
             ok = (best < ratio * ratio * second) & (best < _BIG / 2) & qmask
@@ -98,14 +110,46 @@ def _scores_on_card(desc: Tensor, mask: Tensor, ratio: float, train_chunk: int) 
     return scores
 
 
+def _score_block(qd: Tensor, qm: Tensor, td: Tensor, tm: Tensor, ratio: float,
+                 train_chunk: int) -> Tensor:
+    """[Q, T] block scores on the inputs' device: K1 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if qd.device.type == "cpu":
+        return pair_scores_plain(qd, qm, td, tm, ratio, train_chunk)
+    if qd.device.type != "cuda":
+        raise ValueError(f"unsupported device {qd.device}")
+    return _scores_on_card(qd, qm, td, tm, ratio, train_chunk)
+
+
+def _ring_all_pairs(qd: Tensor, qm: Tensor, comm: Comm, ratio: float,
+                    train_chunk: int) -> Tensor:
+    """The ring: ``qd``/``qm`` are this rank's frames and its first train
+    block; returns its [Q, Q·n] score rows, columns in global frame order.
+    After s hops the block in hand came from rank (my − s) mod n."""
+    n, my = comm.size(), comm.index()
+    Q = qd.shape[0]
+    scores = torch.empty((Q, Q * n), dtype=torch.int32, device=qd.device)
+    td, tm = qd, qm
+    for s in range(n):
+        src = (my - s) % n
+        scores[:, src * Q:(src + 1) * Q] = _score_block(qd, qm, td, tm, ratio, train_chunk)
+        if s + 1 < n:                  # the last block is not forwarded
+            td, tm = comm.ring_shift(td), comm.ring_shift(tm)
+    return scores
+
+
 def all_pairs_scores(desc: Tensor, mask: Tensor, ratio: float = 0.8,
-                     train_chunk: int = 8) -> Tensor:
+                     train_chunk: int = 8, mesh=None) -> Tensor:
     """[N, K, D] float descriptors + [N, K] masks → [N, N] int32
     match-count matrix (diagonal included), on the inputs' device: kernel
-    K1 for CUDA tensors, the plain version for CPU tensors."""
+    K1 for CUDA tensors, the plain version for CPU tensors.
+
+    With ``mesh`` (every rank passing the same inputs), the frames are split
+    over its ``data`` group and scored by the ring; N must divide the group
+    (pad with masked frames).  Every rank returns the full matrix."""
     _check_inputs(desc, mask)
-    if desc.device.type == "cpu":
-        return pair_scores_plain(desc, mask, desc, mask, ratio, train_chunk)
-    if desc.device.type != "cuda":
-        raise ValueError(f"unsupported device {desc.device}")
-    return _scores_on_card(desc, mask, ratio, train_chunk)
+    if not has_axis(mesh, DATA_AXIS):
+        return _ring_all_pairs(desc, mask, Comm(None), ratio, train_chunk)
+    comm = axis_comm(mesh, DATA_AXIS)
+    rows = _ring_all_pairs(shard(desc, mesh), shard(mask, mesh), comm, ratio, train_chunk)
+    return comm.all_gather(rows, tiled=True)

@@ -131,7 +131,8 @@ def test_top2_kernels_one_pair_equals_its_batched_rows(dev):
         assert all(torch.equal(a, b[k:k + 1]) for a, b in zip(one, batched))
 
 
-@pytest.mark.parametrize("b,h,n", [(2, 300, 777), (1, 33, 2500)])
+@pytest.mark.parametrize("b,h,n", [(2, 300, 777), (1, 33, 2500),
+                                   (1, 128, 256)])     # config 4's bootstrap
 def test_ransac_score_kernel_matches_plain(dev, b, h, n):
     from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
         ransac_score_hypotheses, ransac_score_plain)
@@ -173,8 +174,8 @@ def _eight_point_samples(gen, n, dev):
 
 
 # 1, 7, 33, 513: ragged groups and blocks (a block is one warp of 32 / G
-# samples); 64 × 512: the batched shape
-@pytest.mark.parametrize("count", [1, 7, 33, 513, 64 * 512])
+# samples); 128: config 4's bootstrap (one pair); 64 × 512: the batched shape
+@pytest.mark.parametrize("count", [1, 7, 33, 128, 513, 64 * 512])
 @pytest.mark.parametrize("group", [1, 8])
 def test_eight_point_kernel_each_group_equals_plain(dev, group, count):
     from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
@@ -240,9 +241,9 @@ def test_wrappers_raise_on_bad_inputs(dev):
     m = torch.ones(1, 10, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
         fused_l2_top2(q.transpose(1, 2).contiguous().transpose(1, 2), q, m)  # strided
-    with pytest.raises(ValueError):                     # wider than the widest built D
-        fused_l2_top2(torch.randn(1, 10, 160, device=dev), torch.randn(1, 10, 160, device=dev),
-                      m)
+    # wider than the widest built D: the chunked kernel, no raise
+    wide = torch.randn(1, 10, 160, device=dev)
+    assert fused_l2_top2(wide, wide, m)[0].shape == (1, 10, 2)
     with pytest.raises(TypeError):
         fused_l2_top2(q.double(), q.double(), m)
     with pytest.raises(ValueError):
@@ -322,8 +323,9 @@ def test_hamming_wrapper_raises_on_bad_inputs(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     q = _words(gen, 1, 10, 8, dev=dev)
     m = torch.ones(1, 10, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):                     # wider than the widest built W
-        fused_hamming_top2(_words(gen, 1, 10, 20, dev=dev), _words(gen, 1, 10, 20, dev=dev), m)
+    # wider than the widest built W: the chunked kernel, no raise
+    wide = _words(gen, 1, 10, 20, dev=dev)
+    assert fused_hamming_top2(wide, wide, m)[0].shape == (1, 10, 2)
     with pytest.raises(ValueError):                     # strided
         fused_hamming_top2(_words(gen, 1, 10, 16, dev=dev)[..., ::2], q, m)
     with pytest.raises(TypeError):
@@ -433,6 +435,9 @@ def test_two_view_pipeline_gpu_matches_cpu(dev):
     (2, 300, 77, 32, 0.1),
     (1, 256, 8192, 64, 0.9),         # a frame against the landmark bank
     (1, 8192, 256, 64, 0.9),         # the bank's cross-check
+    (1, 256, 2048, 32, 0.78),        # config 4: a frame against a submap's bank
+    (1, 2048, 256, 32, 0.0),         # config 4: the bank's cross-check
+    (1, 256, 256, 32, 0.0),          # config 4: frame to frame
 ])
 def test_l2_top2_kernel_sfm_shapes(dev, b, n1, n2, d, masked):
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
@@ -485,8 +490,9 @@ def test_incremental_sfm_gpu_matches_cpu(dev):
     assert float((s * tg @ R.T + t - tc).norm(dim=-1).max()) < 0.02 * 3.15
 
 
-# 16, 48, 100: padded with zero columns to 32, 64, 128; 128: its own instance
-@pytest.mark.parametrize("d", [16, 48, 100, 128])
+# 16, 48, 100: padded with zero columns to 32, 64, 128; 128: its own
+# instance; 160 (padded to 192), 256, 512: the chunked kernel
+@pytest.mark.parametrize("d", [16, 48, 100, 128, 160, 256, 512])
 def test_l2_top2_kernel_any_width(dev, d):
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
         fused_l2_top2, fused_l2_top2_points, l2_top2_plain)
@@ -509,8 +515,9 @@ def test_l2_top2_kernel_any_width(dev, d):
     assert torch.equal(kp, torch.gather(pts, 1, ki[..., :1].long().expand(-1, -1, 2)))
 
 
-# 4, 12: padded with zero words to 8, 16; 16: its own instance (512-bit)
-@pytest.mark.parametrize("w", [4, 12, 16])
+# 4, 12: padded with zero words to 8, 16; 16: its own instance (512-bit);
+# 20 (padded to 24), 24, 32: the chunked kernel
+@pytest.mark.parametrize("w", [4, 12, 16, 20, 24, 32])
 def test_hamming_top2_kernel_any_width(dev, w):
     from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
 
@@ -522,6 +529,71 @@ def test_hamming_top2_kernel_any_width(dev, w):
     t_mask = torch.rand(2, 700, generator=gen, device=dev) > 0.05
     kd, ki = fused_hamming_top2(q, t, t_mask)
     _check_hamming(q, t, t_mask, kd, ki)
+
+
+@pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 320])
+def test_l2_top2_chunked_one_pair_equals_its_batch_rows(dev, compute_dtype, d):
+    """The chunked K1 keeps one fmaf chain a cell over the whole width: one
+    pair alone (33 train splits) gives the bits of its rows in a batch of 64
+    (one split), and both agree with plain."""
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, l2_top2_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, t = _unit(gen, 64, 512, d, dev=dev), _unit(gen, 64, 512, d, dev=dev)
+    t_mask = torch.rand(64, 512, generator=gen, device=dev) > 0.05
+    batch = fused_l2_top2(q, t, t_mask, compute_dtype=compute_dtype)
+    one = fused_l2_top2(q[:1], t[:1], t_mask[:1], compute_dtype=compute_dtype)
+    assert all(torch.equal(a, b[:1]) for a, b in zip(one, batch))
+    pd, pi = l2_top2_plain(q, t, t_mask, compute_dtype=compute_dtype)
+    torch.testing.assert_close(batch[0], pd, atol=1e-5, rtol=0)
+    tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+    assert bool(((batch[1][..., 0] == pi[..., 0]) | tie).all())
+
+
+@pytest.mark.parametrize("w", [24, 32])
+def test_hamming_top2_chunked_one_pair_equals_its_batch_rows(dev, w):
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import fused_hamming_top2
+
+    gen = torch.Generator(device=dev).manual_seed(w)
+    t = _words(gen, 16, 1024, w, dev=dev)
+    q = _words(gen, 16, 1024, w, dev=dev)
+    q[:, :200] = t[:, 300:500] ^ 3
+    t_mask = torch.rand(16, 1024, generator=gen, device=dev) > 0.05
+    batch = fused_hamming_top2(q, t, t_mask)
+    one = fused_hamming_top2(q[:1], t[:1], t_mask[:1])
+    assert all(torch.equal(a, b[:1]) for a, b in zip(one, batch))
+    _check_hamming(q, t, t_mask, *batch)
+
+
+def test_comm_over_nccl_at_world_size_one(dev):
+    """``Comm`` on an NCCL group of one rank, on CUDA tensors: every
+    collective is the identity of its input (a sum over one rank), in place
+    on the card."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.parallel.comm import Comm
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        c = Comm(dist.group.WORLD)
+        x = torch.arange(6.0, device=dev).reshape(2, 3)
+        assert c.size() == 1 and c.index() == 0
+        for out in (c.psum(x), c.pmean(x), c.pmax(x), c.pmin(x), c.ring_shift(x),
+                    c.all_gather(x, tiled=True), c.reduce_scatter(x),
+                    c.all_to_all(x, 0, 1), c.all_gather(x)[0]):
+            assert out.device.type == "cuda" and torch.equal(out, x)
+        assert torch.equal(x, torch.arange(6.0, device=dev).reshape(2, 3))   # input kept
+    finally:
+        dist.destroy_process_group()
 
 
 def test_all_pairs_scores_kernel_matches_plain(dev):

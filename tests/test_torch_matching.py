@@ -197,22 +197,24 @@ def test_unknown_metric_raises(backend):
         tm.match_descriptors(d1, d2, MatcherConfig(metric="cosine", backend=backend))
 
 
-@pytest.mark.parametrize("width", [16, 48, 100])
+@pytest.mark.parametrize("width", [16, 48, 100, 160, 200])
 def test_l2_width_padding_is_exact(width):
-    """On the card K1/K1b pad D to the next built width with zero columns;
-    the plain version on the padded input gives the original's indices and
-    its distances to f32 rounding (a zero column adds exact zeros, but the
-    GEMM may sum in another order at another width)."""
+    """On the card K1/K1b pad D with zero columns to the next built width,
+    or above the widest to whole chunks of the chunked kernel; the plain
+    version on the padded input gives the original's indices and its
+    distances to f32 rounding (a zero column adds exact zeros, but the GEMM
+    may sum in another order at another width)."""
     from points_matching_tpu_torch.ops.kernels import _build
     from points_matching_tpu_torch.ops.kernels.matching_kernel import (
-        BUILT_DIMS, l2_top2_plain, l2_top2_points_plain)
+        BUILT_DIMS, CHUNK_DIM, l2_top2_plain, l2_top2_points_plain)
 
     rng = np.random.RandomState(width)
     q = _t(np.stack([_unit_rows(rng, 90, width) for _ in range(2)]))
     t = _t(np.stack([_unit_rows(rng, 70, width) for _ in range(2)]))
     t_mask = _t(rng.rand(2, 70) > 0.1)
-    qp, tp = (_build.pad_width(x, BUILT_DIMS, "D") for x in (q, t))
-    assert qp.shape[-1] == next(w for w in BUILT_DIMS if w >= width)
+    qp, tp = (_build.pad_width(x, BUILT_DIMS, CHUNK_DIM) for x in (q, t))
+    want = next((w for w in BUILT_DIMS if w >= width), -(-width // CHUNK_DIM) * CHUNK_DIM)
+    assert qp.shape[-1] == want
     assert torch.equal(qp[..., :width], q) and not qp[..., width:].any()
     d0, i0 = l2_top2_plain(q, t, t_mask)
     d1, i1 = l2_top2_plain(qp, tp, t_mask)
@@ -225,13 +227,21 @@ def test_l2_width_padding_is_exact(width):
 
 
 def test_width_padding_raises_above_the_widest():
+    """No width raises any more: above the widest built width the kernels
+    take their chunked path, and the widths pad to whole chunks (D to a
+    multiple of 64, W to a multiple of 8); a width that is already such a
+    width is not copied."""
     from points_matching_tpu_torch.ops.kernels import _build
-    from points_matching_tpu_torch.ops.kernels.hamming_kernel import BUILT_WORDS
-    from points_matching_tpu_torch.ops.kernels.matching_kernel import BUILT_DIMS
+    from points_matching_tpu_torch.ops.kernels.hamming_kernel import BUILT_WORDS, CHUNK_WORDS
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import BUILT_DIMS, CHUNK_DIM
 
     x = torch.zeros(1, 4, 64)
-    assert _build.pad_width(x, BUILT_DIMS, "D") is x           # a built width: no copy
-    with pytest.raises(ValueError, match="D = 160"):
-        _build.pad_width(torch.zeros(1, 4, 160), BUILT_DIMS, "D")
-    with pytest.raises(ValueError, match="W = 20"):
-        _build.pad_width(torch.zeros(1, 4, 20, dtype=torch.int32), BUILT_WORDS, "W")
+    assert _build.pad_width(x, BUILT_DIMS, CHUNK_DIM) is x     # a built width: no copy
+    x = torch.zeros(1, 4, 256)
+    assert _build.pad_width(x, BUILT_DIMS, CHUNK_DIM) is x     # whole chunks: no copy
+    assert _build.pad_width(torch.zeros(1, 4, 160), BUILT_DIMS, CHUNK_DIM).shape[-1] == 192
+    assert _build.pad_width(torch.zeros(1, 4, 513), BUILT_DIMS, CHUNK_DIM).shape[-1] == 576
+    w = torch.zeros(1, 4, 20, dtype=torch.int32)
+    assert _build.pad_width(w, BUILT_WORDS, CHUNK_WORDS).shape[-1] == 24
+    w = torch.zeros(1, 4, 32, dtype=torch.int32)
+    assert _build.pad_width(w, BUILT_WORDS, CHUNK_WORDS) is w

@@ -391,14 +391,15 @@ def test_pack_bits_matches_numpy():
     np.testing.assert_array_equal(words.numpy().view(np.uint32), ref)
 
 
-@pytest.mark.parametrize("words", [4, 12])
+@pytest.mark.parametrize("words", [4, 12, 20])
 def test_hamming_width_padding_is_exact(words):
-    """On the card K4 pads W to the next built width with zero words, which
-    add no bits: the plain version on the padded input equals it on the
+    """On the card K4 pads W to the next built width with zero words, or
+    above the widest to whole 8-word chunks, which add no bits: the plain
+    version on the padded input equals it on the
     original, distances and both index columns."""
     from points_matching_tpu_torch.ops.kernels import _build
     from points_matching_tpu_torch.ops.kernels.hamming_kernel import (
-        BUILT_WORDS, hamming_top2_plain)
+        BUILT_WORDS, CHUNK_WORDS, hamming_top2_plain)
 
     rng = np.random.RandomState(words)
     t = rng.randint(0, 2**32, (2, 60, words), dtype=np.uint64).astype(np.uint32)
@@ -406,8 +407,9 @@ def test_hamming_width_padding_is_exact(words):
     q[:, :20] = t[:, :20] ^ np.uint32(6)                # near-duplicates
     qt, tt = (torch.from_numpy(x.view(np.int32)) for x in (q, t))
     t_mask = torch.from_numpy(rng.rand(2, 60) > 0.1)
-    qp, tp = (_build.pad_width(x, BUILT_WORDS, "W") for x in (qt, tt))
-    assert qp.shape[-1] == next(w for w in BUILT_WORDS if w >= words)
+    qp, tp = (_build.pad_width(x, BUILT_WORDS, CHUNK_WORDS) for x in (qt, tt))
+    want = next((w for w in BUILT_WORDS if w >= words), -(-words // CHUNK_WORDS) * CHUNK_WORDS)
+    assert qp.shape[-1] == want
     assert torch.equal(qp[..., :words], qt) and not qp[..., words:].any()
     d0, i0 = hamming_top2_plain(qt, tt, t_mask)
     d1, i1 = hamming_top2_plain(qp, tp, t_mask)

@@ -112,3 +112,30 @@ def write_tum_format(out_dir: str, images, positions, quats, fps: float = 30.0):
         f.write("\n".join(rgb_lines))
     with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
         f.write("\n".join(gt_lines))
+
+
+def write_kitti_format(root: str, images, positions, quats, K, sequence: str = "00",
+                       camera: int = 0, fps: float = 10.0):
+    """Write a rendered sequence as a KITTI odometry tree:
+    ``sequences/<seq>/image_<cam>/%06d.png``, ``sequences/<seq>/calib.txt``
+    (``P<cam>`` carrying ``K`` = (fx, fy, cx, cy)), ``sequences/<seq>/times.txt``
+    at ``fps`` and ``poses/<seq>.txt`` (3×4 camera-to-world a line)."""
+    from PIL import Image
+
+    from points_matching_tpu_torch.data.datasets import _quat_to_rot
+
+    seq_dir = os.path.join(root, "sequences", sequence)
+    img_dir = os.path.join(seq_dir, f"image_{camera}")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    for i in range(len(images)):
+        Image.fromarray(images[i].astype(np.uint8)).save(os.path.join(img_dir, f"{i:06d}.png"))
+    fx, fy, cx, cy = K
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        f.write(f"P{camera}: {fx:.12e} 0 {cx:.12e} 0 0 {fy:.12e} {cy:.12e} 0 0 0 1 0\n")
+    with open(os.path.join(seq_dir, "times.txt"), "w") as f:
+        f.write("\n".join(f"{i / fps:.6e}" for i in range(len(images))) + "\n")
+    R = _quat_to_rot(np.asarray(quats, np.float64))
+    P = np.concatenate([R, np.asarray(positions, np.float64)[:, :, None]], -1)
+    with open(os.path.join(root, "poses", f"{sequence}.txt"), "w") as f:
+        f.write("\n".join(" ".join(f"{v:.12e}" for v in row.ravel()) for row in P) + "\n")

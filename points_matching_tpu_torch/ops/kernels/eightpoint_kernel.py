@@ -28,6 +28,8 @@ from typing import List
 import torch
 
 from points_matching_tpu_torch.ops.kernels import _build
+from points_matching_tpu_torch.ops.kernels import work as _work
+from points_matching_tpu_torch.utils.sanitize import check_finite, check_index
 
 Tensor = torch.Tensor
 
@@ -202,9 +204,16 @@ def minimal_eight_point(sp1: Tensor, sp2: Tensor, *, _group=None) -> Tensor:
     if _group is not None and _group not in GROUPS:
         raise ValueError(f"_group must be one of {GROUPS}, got {_group!r}")
     if sp1.device.type == "cpu":
-        return minimal_eight_point_plain(sp1, sp2)
-    if sp1.device.type != "cuda":
+        F = minimal_eight_point_plain(sp1, sp2)
+    elif sp1.device.type == "cuda":
+        F = _launch(sp1, sp2, _group)
+    else:
         raise ValueError(f"unsupported device {sp1.device}")
+    check_finite(F, "minimal_eight_point")      # inside a utils/sanitize.checked run
+    return F
+
+
+def _launch(sp1: Tensor, sp2: Tensor, _group) -> Tensor:
     if not (sp1.is_contiguous() and sp2.is_contiguous()):
         raise ValueError("the CUDA kernel needs contiguous inputs")
     if sp1.data_ptr() % 16 or sp2.data_ptr() % 16:
@@ -226,4 +235,5 @@ def minimal_eight_point(sp1: Tensor, sp2: Tensor, *, _group=None) -> Tensor:
 
 
 minimal_eight_point.launches = 0
+minimal_eight_point.work = _work.eight_point_work
 minimal_eight_point.last_group = None    # G of the last kernel launch

@@ -39,6 +39,8 @@ from typing import Tuple
 import torch
 
 from points_matching_tpu_torch.ops.kernels import _build
+from points_matching_tpu_torch.ops.kernels import work as _work
+from points_matching_tpu_torch.utils.sanitize import check_finite, check_index
 
 Tensor = torch.Tensor
 _BIG = 1e30
@@ -107,9 +109,19 @@ def fused_hamming_top2(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Te
     """
     _check_inputs(q, t, t_mask)
     if q.device.type == "cpu":
-        return hamming_top2_plain(q, t, t_mask)
-    if q.device.type != "cuda":
+        dist, idx = hamming_top2_plain(q, t, t_mask)
+    elif q.device.type == "cuda":
+        dist, idx = _launch(q, t, t_mask)
+        fused_hamming_top2.launches += 1
+    else:
         raise ValueError(f"unsupported device {q.device}")
+    # inside a utils/sanitize.checked run: finite distances, indices in range
+    check_finite(dist, "fused_hamming_top2")
+    check_index(idx, t.shape[1], "fused_hamming_top2")
+    return dist, idx
+
+
+def _launch(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Tensor]:
     if not all(x.is_contiguous() for x in (q, t, t_mask)):
         raise ValueError("the CUDA kernel needs contiguous inputs")
     # zero words up to the next built width or whole chunk (a fresh,
@@ -133,8 +145,8 @@ def fused_hamming_top2(q: Tensor, t: Tensor, t_mask: Tensor) -> Tuple[Tensor, Te
             idx.data_ptr(), None if part is None else part.data_ptr(),
             B, N1, N2, q.shape[2], S, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_hamming_top2")
-    fused_hamming_top2.launches += 1
     return dist, idx
 
 
 fused_hamming_top2.launches = 0
+fused_hamming_top2.work = _work.hamming_top2_work

@@ -31,6 +31,8 @@ from typing import Optional, Tuple
 import torch
 
 from points_matching_tpu_torch.ops.kernels import _build
+from points_matching_tpu_torch.ops.kernels import work as _work
+from points_matching_tpu_torch.utils.sanitize import check_finite, check_index
 
 Tensor = torch.Tensor
 _BIG = 1e30
@@ -135,6 +137,16 @@ def _launch(q, t, t_mask, t_points, compute_dtype):
     return dist, idx, pts
 
 
+def _check_outputs(name: str, n2: int, dist: Tensor, idx: Tensor,
+                   pts: Optional[Tensor] = None) -> None:
+    """Inside a ``utils/sanitize.checked`` run: the kernel's distances
+    (and points) finite, its indices in [0, N2)."""
+    check_finite(dist, name)
+    check_index(idx, n2, name)
+    if pts is not None:
+        check_finite(pts, name)
+
+
 def fused_l2_top2(q: Tensor, t: Tensor, t_mask: Tensor,
                   compute_dtype: str = "f32") -> Tuple[Tensor, Tensor]:
     """Squared-L2 (best, second-best) distances and indices per query row.
@@ -148,11 +160,13 @@ def fused_l2_top2(q: Tensor, t: Tensor, t_mask: Tensor,
     """
     _check_inputs(q, t, t_mask, None, compute_dtype)
     if q.device.type == "cpu":
-        return l2_top2_plain(q, t, t_mask, compute_dtype)
-    if q.device.type != "cuda":
+        dist, idx = l2_top2_plain(q, t, t_mask, compute_dtype)
+    elif q.device.type == "cuda":
+        dist, idx, _ = _launch(q, t, t_mask, None, compute_dtype)
+        fused_l2_top2.launches += 1
+    else:
         raise ValueError(f"unsupported device {q.device}")
-    dist, idx, _ = _launch(q, t, t_mask, None, compute_dtype)
-    fused_l2_top2.launches += 1
+    _check_outputs("fused_l2_top2", t.shape[1], dist, idx)
     return dist, idx
 
 
@@ -163,13 +177,17 @@ def fused_l2_top2_points(q: Tensor, t: Tensor, t_mask: Tensor, t_points: Tensor,
     ``pts[b, i] == t_points[b, idx[b, i, 0]]`` exactly."""
     _check_inputs(q, t, t_mask, t_points, compute_dtype)
     if q.device.type == "cpu":
-        return l2_top2_points_plain(q, t, t_mask, t_points, compute_dtype)
-    if q.device.type != "cuda":
+        out = l2_top2_points_plain(q, t, t_mask, t_points, compute_dtype)
+    elif q.device.type == "cuda":
+        out = _launch(q, t, t_mask, t_points, compute_dtype)
+        fused_l2_top2_points.launches += 1
+    else:
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch(q, t, t_mask, t_points, compute_dtype)
-    fused_l2_top2_points.launches += 1
+    _check_outputs("fused_l2_top2_points", t.shape[1], *out)
     return out
 
 
 fused_l2_top2.launches = 0
 fused_l2_top2_points.launches = 0
+fused_l2_top2.work = _work.l2_top2_work            # bytes and flops of a call
+fused_l2_top2_points.work = _work.l2_top2_work

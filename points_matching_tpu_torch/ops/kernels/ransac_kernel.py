@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from points_matching_tpu_torch.ops.kernels import _build
+from points_matching_tpu_torch.ops.kernels import work as _work
+from points_matching_tpu_torch.utils.sanitize import check_finite, check_index
 
 Tensor = torch.Tensor
 
@@ -70,9 +72,18 @@ def ransac_score_hypotheses(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor,
     """
     _check_inputs(F_h, p1, p2, mask)
     if F_h.device.type == "cpu":
-        return ransac_score_plain(F_h, p1, p2, mask, threshold)
-    if F_h.device.type != "cuda":
+        counts = ransac_score_plain(F_h, p1, p2, mask, threshold)
+    elif F_h.device.type == "cuda":
+        counts = _launch(F_h, p1, p2, mask, threshold)
+        ransac_score_hypotheses.launches += 1
+    else:
         raise ValueError(f"unsupported device {F_h.device}")
+    # inside a utils/sanitize.checked run: every count in [0, N]
+    check_index(counts, p1.shape[1] + 1, "ransac_score_hypotheses")
+    return counts
+
+
+def _launch(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: float) -> Tensor:
     if not all(x.is_contiguous() for x in (F_h, p1, p2, mask)):
         raise ValueError("the CUDA kernel needs contiguous inputs")
     if p1.data_ptr() % 8 or p2.data_ptr() % 8:
@@ -87,8 +98,8 @@ def ransac_score_hypotheses(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor,
             counts.data_ptr(), B, H, N, float(threshold) ** 2,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_ransac_score")
-    ransac_score_hypotheses.launches += 1
     return counts
 
 
 ransac_score_hypotheses.launches = 0
+ransac_score_hypotheses.work = _work.ransac_score_work

@@ -1,0 +1,135 @@
+"""The work of each kernel: the bytes it must move and the operations it
+must do on given inputs, and the least time the card could take for them.
+
+One source for ``chip_smoke.py``'s kernel table and for
+``utils/profiling.roofline``: each wrapper carries its count as a ``work``
+attribute taking the wrapper's own arguments (``fused_l2_top2.work(q, t,
+t_mask)``), and ``bound`` turns a count into a time against a device's
+peaks (``utils/profiling.chip_peaks``).  A kernel launched through ctypes
+is invisible to ``torch.utils.flop_counter``, so the counts are written
+here by hand:
+
+* bytes: each input read once, each output written once;
+* operations: in the unit the kernel is bound by — fp32 FMA flops (an FMA
+  is two) for K1, one instruction per unfused fp32 operation for K2 and K3
+  (built with ``--fmad=false``), population counts for K4.  Where the work
+  depends on the data it is counted from the inputs: a masked train row of
+  K1 or K4 needs no distance, so only the valid rows count.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+# which entry of ``chip_peaks`` is the rate of each unit
+UNIT_RATE = {"flops": "flops", "instr": "instr_per_s", "popc": "popc_per_s"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    bytes: float
+    ops: float
+    unit: str            # a key of UNIT_RATE
+
+
+def bound(work: Work, peaks: dict) -> dict:
+    """The least time for ``work`` on a device with ``peaks``: the larger
+    of bytes over the memory rate and operations over their peak rate, as
+    ``{"bound_ms": t, "bound_by": "bytes" | "operations"}``."""
+    t_bytes = work.bytes / (peaks["hbm_gbps"] * 1e9) * 1e3
+    t_ops = work.ops / peaks[UNIT_RATE[work.unit]] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def elementwise_ops(fn, *args) -> int:
+    """Scalar operations of a plain version written as elementwise tensor
+    ops (K2, K3): the largest element count of each arithmetic, comparison
+    or select op it dispatches.  Run on one sample or cell, it counts the
+    kernel's per-item instructions, since the plain versions repeat the
+    kernels' operation chains."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counted = {"add", "sub", "mul", "div", "reciprocal", "sqrt", "abs", "neg",
+               "clamp_min", "clamp_max", "maximum", "minimum", "where", "isfinite",
+               "gt", "lt", "ge", "le", "eq", "ne", "bitwise_and", "sum"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in counted:
+                sizes = [x.numel() for x in (*args, out) if hasattr(x, "numel")]
+                self.n += max(sizes)
+            return out
+
+    with Count() as c:
+        fn(*args)
+    return c.n
+
+
+def _one_sample(*shape):
+    g = torch.Generator().manual_seed(0)
+    return torch.rand(*shape, generator=g) * 500.0
+
+
+@functools.lru_cache(maxsize=None)
+def eight_point_ops_per_sample() -> int:
+    """K3's fp32 operations a sample (its plain version on one sample)."""
+    from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
+        minimal_eight_point_plain)
+
+    return elementwise_ops(minimal_eight_point_plain, _one_sample(1, 1, 8, 2),
+                           _one_sample(1, 1, 8, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def ransac_score_ops_per_cell() -> int:
+    """K2's fp32 operations a (hypothesis, point) cell."""
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import ransac_score_plain
+
+    F = _one_sample(1, 1, 3, 3) / 500.0
+    return elementwise_ops(ransac_score_plain, F, _one_sample(1, 1, 2), _one_sample(1, 1, 2),
+                           torch.ones(1, 1, dtype=torch.bool), 1.5)
+
+
+def l2_top2_work(q, t, t_mask, t_points=None, compute_dtype: str = "f32") -> Work:
+    """K1 (K1b with ``t_points``): q and the valid t rows read once, the
+    mask read, dist and idx written once (+ the valid rows' points read and
+    the matched points written); one FMA per (query, valid train row, dim)
+    cell, at the width given (not the padded one)."""
+    B, N1, D = q.shape
+    N2 = t.shape[1]
+    valid = int(t_mask.sum())
+    P = 0 if t_points is None else t_points.shape[2]
+    nbytes = 4 * (B * N1 + valid) * D + B * N2 + 16 * B * N1 + 4 * P * (valid + B * N1)
+    return Work(nbytes, 2 * N1 * valid * D, "flops")
+
+
+def hamming_top2_work(q, t, t_mask) -> Work:
+    """K4: q and the valid t rows' words read once, the mask read, dist and
+    idx written once; one population count per (query, valid train row,
+    word) cell."""
+    B, N1, W = q.shape
+    N2 = t.shape[1]
+    valid = int(t_mask.sum())
+    return Work(4 * (B * N1 + valid) * W + B * N2 + 16 * B * N1, N1 * valid * W, "popc")
+
+
+def eight_point_work(sp1, sp2, **_) -> Work:
+    """K3: each sample's 2 × 8 points read and its F written once; the
+    plain version's operations a sample."""
+    count = sp1.numel() // 16
+    return Work(count * (2 * 8 * 2 + 9) * 4, count * eight_point_ops_per_sample(), "instr")
+
+
+def ransac_score_work(F_h, p1, p2, mask, threshold=None) -> Work:
+    """K2: each hypothesis read and its count written once, each point pair
+    and its mask bit read once; the plain version's operations a cell."""
+    B, H = F_h.shape[:2]
+    N = p1.shape[1]
+    return Work(B * H * (9 + 1) * 4 + B * N * (2 * 2 * 4 + 1),
+                B * H * N * ransac_score_ops_per_cell(), "instr")

@@ -30,6 +30,7 @@ from points_matching_tpu_torch.geometry.ransac import ransac_fundamental
 from points_matching_tpu_torch.ops.descriptors import extract_descriptors
 from points_matching_tpu_torch.ops.detect import detect_keypoints
 from points_matching_tpu_torch.ops.matching import match_descriptors, match_stats
+from points_matching_tpu_torch.utils.profiling import stage
 
 Tensor = torch.Tensor
 
@@ -67,14 +68,17 @@ def two_view_pipeline(
       samples: optional injected RANSAC minimal sets (sp1, sp2).
     """
     pin_fp32()
-    kps1 = detect_keypoints(image1, config.detector)
-    kps2 = detect_keypoints(image2, config.detector)
+    with stage("two_view.detect"):
+        kps1 = detect_keypoints(image1, config.detector)
+        kps2 = detect_keypoints(image2, config.detector)
 
-    d1 = extract_descriptors(image1, kps1, config.descriptor)
-    d2 = extract_descriptors(image2, kps2, config.descriptor)
+    with stage("two_view.describe"):
+        d1 = extract_descriptors(image1, kps1, config.descriptor)
+        d2 = extract_descriptors(image2, kps2, config.descriptor)
 
-    matches = match_descriptors(d1, d2, config.matcher)
-    dmin, dmax = match_stats(matches)
+    with stage("two_view.match"):
+        matches = match_descriptors(d1, d2, config.matcher)
+        dmin, dmax = match_stats(matches)
 
     p1, p2 = matches.gather_points(kps1, kps2)
     w = matches.mask
@@ -82,7 +86,8 @@ def two_view_pipeline(
     if config.use_ransac:
         if generator is None and samples is None:
             generator = torch.Generator(device=image1.device).manual_seed(0)
-        est = ransac_fundamental(generator, p1, p2, w, config.ransac, samples=samples)
+        with stage("two_view.ransac"):
+            est = ransac_fundamental(generator, p1, p2, w, config.ransac, samples=samples)
     else:
         # OpenCV CV_FM_7POINT dispatch parity: 7-point for exactly 7 good
         # matches, normalized 8-point otherwise; among ≤3 root candidates

@@ -80,6 +80,16 @@ def sparse():
     return out
 
 
+@pytest.fixture(scope="module")
+def dense_jax_residuals(dense):
+    """The reference's residuals and Jacobians on ``dense`` (one jit), shared
+    by the residual and the Schur-solve tests."""
+    jK, _ = _K(dense["K"])
+    jp = JPose(R=jnp.asarray(dense["R"]), t=jnp.asarray(dense["t"]))
+    args = [jnp.asarray(dense[k]) for k in ("X", "uv", "mask")]
+    return jax.jit(jres.residuals_and_jacobians)(jp, *args, jK)
+
+
 def _jsparse_state(d):
     st = jsp.make_sparse_ba_state(JPose(R=jnp.asarray(d["R"]), t=jnp.asarray(d["t"])),
                                   *(jnp.asarray(d[k]) for k in
@@ -105,12 +115,12 @@ def test_make_sparse_ba_problem_matches_reference():
     np.testing.assert_allclose(t["uv"].numpy(), np.asarray(j["uv"]), atol=1e-3)
 
 
-def test_dense_residuals_and_jacobians_closed_form(dense):
+def test_dense_residuals_and_jacobians_closed_form(dense, dense_jax_residuals):
     jK, tK = _K(dense["K"])
     jp = JPose(R=jnp.asarray(dense["R"]), t=jnp.asarray(dense["t"]))
     tp = Pose(R=_t(dense["R"]), t=_t(dense["t"]))
     args = [dense[k] for k in ("X", "uv", "mask")]
-    rj, Jcj, Jlj = jax.jit(jres.residuals_and_jacobians)(jp, *map(jnp.asarray, args), jK)
+    rj, Jcj, Jlj = dense_jax_residuals
     rt, Jct, Jlt = tres.residuals_and_jacobians(tp, *map(_t, args), tK)
     # pixel-scale residuals (≤ ~20 px) and Jacobians (≤ ~600): 1e-5 relative
     # to each array's largest entry, against the reference's jacfwd
@@ -168,11 +178,9 @@ def test_sparse_residuals_jacobians_and_normal_equations(sparse):
     assert not dlt[ts.lm_fixed].any()
 
 
-def test_dense_schur_solves(dense):
-    jK, _ = _K(dense["K"])
-    jp = JPose(R=jnp.asarray(dense["R"]), t=jnp.asarray(dense["t"]))
+def test_dense_schur_solves(dense, dense_jax_residuals):
     args = [jnp.asarray(dense[k]) for k in ("X", "uv", "mask")]
-    r, Jc, Jl = jax.jit(jres.residuals_and_jacobians)(jp, *args, jK)
+    r, Jc, Jl = dense_jax_residuals
     blocks_j = jax.jit(jschur.build_normal_equations)(r, Jc, Jl, args[2].astype(jnp.float32))
     blocks_t = tschur.build_normal_equations(_t(r), _t(Jc), _t(Jl), _t(args[2]).float())
     for a, b in zip(blocks_t, blocks_j):

@@ -706,3 +706,95 @@ def test_pose_graph_gpu_matches_cpu(dev, solver):
     # both solve in float64 (ba/pose_graph.py): 1e-4 on the f32 poses
     torch.testing.assert_close(gg.poses.R.cpu(), cg.poses.R, atol=1e-4, rtol=0)
     torch.testing.assert_close(gg.poses.t.cpu(), cg.poses.t, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,n1,n2,masked", [
+    (1, 512, 32768, 0.9),            # the SLAM demo: a frame against its landmark bank
+    (1, 32768, 512, 0.0),            # the bank's cross-check
+    (1, 512, 512, 0.0),              # frame to frame (bootstrap, previous frame)
+    (5, 512, 512, 0.0),              # a batch of loop verifications
+])
+def test_l2_top2_kernel_slam_demo_shapes(dev, b, n1, n2, masked):
+    """K1 at the shapes ``pipelines/slam.run_slam_demo`` launches (512
+    features, D = 64, a bank of 64 × 512 rows) against its plain version."""
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import (
+        fused_l2_top2, l2_top2_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, t = _unit(gen, b, n1, 64, dev=dev), _unit(gen, b, n2, 64, dev=dev)
+    t_mask = torch.rand(b, n2, generator=gen, device=dev) >= masked
+    kd, ki = fused_l2_top2(q, t, t_mask)
+    pd, pi = l2_top2_plain(q, t, t_mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kd, pd, atol=1e-5, rtol=0)
+    tie = (pd[..., 0] - pd[..., 1]).abs() < 1e-5
+    assert bool(((ki[..., 0] == pi[..., 0]) | tie).all())
+
+
+def test_checkpoint_restores_onto_the_card_bit_for_bit(dev, tmp_path):
+    """An SfM map built on the card, saved (copied to the host before
+    ``save`` returns) and restored onto the card with the state as
+    template: every tensor equal, on the card."""
+    from points_matching_tpu_torch.core.config import SfMConfig
+    from points_matching_tpu_torch.data.synthetic import make_tracked_sequence
+    from points_matching_tpu_torch.pipelines.sfm import run_incremental_sfm
+    from points_matching_tpu_torch.utils.checkpoint import CheckpointManager
+
+    frames, K, _ = make_tracked_sequence(8, device=dev, num_features=128)
+    state = run_incremental_sfm(frames, K, SfMConfig(max_cameras=10, max_landmarks=2048,
+                                                     max_observations=8192)).state
+    with CheckpointManager(str(tmp_path / "c")) as mgr:
+        mgr.save(8, state)
+        state.X.add_(1.0)                           # the caller goes on at once
+        got = mgr.restore(template=state)
+        plain = mgr.restore()
+    assert got.X.is_cuda and got.poses.R.is_cuda
+    assert torch.equal(got.X + 1.0, state.X)
+    for f in dataclasses.fields(state):
+        a, b = getattr(got, f.name), getattr(state, f.name)
+        if isinstance(b, torch.Tensor) and f.name != "X":
+            assert torch.equal(a, b), f.name
+    assert torch.equal(got.poses.t, state.poses.t)
+    assert plain["X"].device.type == "cpu"
+
+
+def test_checked_flags_a_nan_on_the_card(dev):
+    """``checked(two_view_pipeline)`` on the card: a rendered pair runs
+    clean with the unchecked run's F; a NaN in one pixel is flagged."""
+    from points_matching_tpu_torch.core.config import named_config
+    from points_matching_tpu_torch.data.render import render_sequence
+    from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
+    from points_matching_tpu_torch.utils.sanitize import checked
+
+    imgs, *_ = render_sequence(num_frames=2, num_landmarks=300, image_size=(320, 240), seed=0)
+    a, b = (torch.from_numpy(np.ascontiguousarray(i)).to(dev) for i in imgs)
+    cfg = named_config("ransac")
+
+    def run(x, y):
+        return two_view_pipeline(x, y, torch.Generator(device=dev).manual_seed(0), cfg).estimate.F
+
+    F, err = checked(run)(a, b)
+    assert err.get() is None and torch.equal(F, run(a, b))
+    bad = a.clone()
+    bad[100, 100] = float("nan")
+    _, err = checked(run)(bad, b)
+    assert err.get().startswith("nan in the output of")
+
+
+def test_chip_peaks_reads_the_h100_row(dev):
+    from points_matching_tpu_torch.ops.kernels.matching_kernel import fused_l2_top2
+    from points_matching_tpu_torch.ops.kernels.work import bound
+    from points_matching_tpu_torch.utils.profiling import chip_peaks, roofline
+
+    if "H100" not in torch.cuda.get_device_name(dev):
+        pytest.skip("the table's row is the H100's")
+    peaks = chip_peaks("cuda")
+    assert (peaks["flops"], peaks["hbm_gbps"], peaks["instr_per_s"]) == (67e12, 3350.0, 33.5e12)
+    assert peaks["popc_per_s"] == 33.5e12 * 16 / 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, t = _unit(gen, 8, 512, 64, dev=dev), _unit(gen, 8, 512, 64, dev=dev)
+    t_mask = torch.rand(8, 512, generator=gen, device=dev) > 0.05
+    rep = roofline(fused_l2_top2, q, t, t_mask, timing="graph")
+    assert rep.unit == "flops" and rep.bound_s == bound(fused_l2_top2.work(q, t, t_mask),
+                                                        peaks)["bound_ms"] / 1e3
+    assert 0 < rep.fraction_of_roofline <= 1

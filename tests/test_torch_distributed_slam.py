@@ -32,6 +32,7 @@ from test_distributed_slam import (  # noqa: E402
 from torch_dist_worker import Spawned, one_thread  # noqa: E402
 
 SEG, OVERLAP, SEED = 10, 4, 0
+SLAM_FRAMES = 8           # the SLAM demo's tree (tests/test_torch_slam_demo.py's)
 ATE_BOUND = 0.05        # tests/test_distributed_slam.py's bound (extent 4.5)
 _index_sets = jax.jit(sample_index_sets, static_argnums=(2, 3))
 _match = jax.jit(j_match, static_argnums=2)
@@ -53,10 +54,20 @@ def seq():
 @pytest.fixture(scope="module")
 def workers(seq, tmp_path_factory):
     """World sizes 4 and 2 in one 4-rank group, started now and joined by
-    the first test that needs them."""
-    inputs = dict(jobs=["dslam"], kps=seq["kps"], desc=seq["desc"], mask=seq["mask"],
-                  K=_np(seq["K"].matrix()), config=dataclasses.asdict(seq["jcfg"]),
-                  kw=dict(segment_len=SEG, overlap=OVERLAP, seed=SEED))
+    the first test that needs them; the same group also runs the SLAM
+    demo's ``--distributed`` path on a rendered KITTI-format tree."""
+    from points_matching_tpu_torch.data.render import render_sequence, write_kitti_format
+
+    imgs, pos, quats, K = render_sequence(num_frames=SLAM_FRAMES, num_landmarks=400,
+                                          image_size=(320, 240), seed=0, loop=True,
+                                          x_span=(-6.0, 6.75))
+    tree = str(tmp_path_factory.mktemp("kitti"))
+    write_kitti_format(tree, imgs, pos, quats, K)
+    inputs = dict(jobs=["dslam", "slam_demo"], kps=seq["kps"], desc=seq["desc"],
+                  mask=seq["mask"], K=_np(seq["K"].matrix()),
+                  config=dataclasses.asdict(seq["jcfg"]),
+                  kw=dict(segment_len=SEG, overlap=OVERLAP, seed=SEED),
+                  slam_tree=tree, slam_frames=SLAM_FRAMES, slam_features=128)
     return Spawned(4, inputs, tmp_path_factory.mktemp("dslam"))
 
 
@@ -277,3 +288,19 @@ def test_stacked_sequence_matches_the_reference():
         np.testing.assert_allclose(tgt, gt, rtol=0, atol=1e-5)
         assert [float(v) for v in (tK.fx, tK.fy, tK.cx, tK.cy)] == \
             [float(v) for v in (K.fx, K.fy, K.cx, K.cy)]
+
+
+def test_slam_demo_distributed_under_torchrun(workers):
+    """``pipelines/slam.run_slam_demo(distributed=True)`` with ``torchrun``'s
+    variables set (the 4-rank group): a 2 × 2 data × model mesh, 2 segments
+    of 5 with an overlap of 3; every rank returns the same result, under
+    config 4's gates."""
+    res = [r["slam_demo"] for r in workers.results()]
+    for r in res:
+        nums = r["numbers"]
+        assert nums["world_size"] == 4 and nums["mesh"] == [2, 2] and nums["segments"] == 2
+        assert r["regs"].all() and nums["registered"] == nums["registered_slots"] == 10
+        assert nums["cameras_valid"] == nums["cameras"] == 7
+        assert nums["ate"] < 0.1 * nums["extent"]
+        assert nums["ba_final_cost"] <= nums["ba_initial_cost"]
+        np.testing.assert_array_equal(r["trajectory"], res[0]["trajectory"])

@@ -79,9 +79,16 @@ def _detector_config():
                            num_octaves=3)
 
 
-def test_detect_keypoints_matches_jax_as_sets(image):
+@pytest.fixture(scope="module")
+def jax_keypoints(image):
+    """The reference's keypoints on ``image``, shared by the detector and
+    the descriptor tests."""
+    return j_detect(jnp.asarray(image), _detector_config())
+
+
+def test_detect_keypoints_matches_jax_as_sets(image, jax_keypoints):
     jcfg = _detector_config()
-    jk = j_detect(jnp.asarray(image), jcfg)
+    jk = jax_keypoints
     tk = detect_keypoints(torch.from_numpy(image),
                           config_from_dict(dataclasses.asdict(jcfg), DetectorConfig))
     jm, tm = np.asarray(jk.mask), tk.mask.numpy()
@@ -101,8 +108,8 @@ def test_detect_keypoints_matches_jax_as_sets(image):
     assert np.abs(dang).max() < 1e-3
 
 
-def test_surf_describe_on_same_keypoints(image):
-    jk = j_detect(jnp.asarray(image), _detector_config())
+def test_surf_describe_on_same_keypoints(image, jax_keypoints):
+    jk = jax_keypoints
     jd = j_describe(jnp.asarray(image), jk)
     td = surf_describe(torch.from_numpy(image), keypoints_from_numpy(jk, device="cpu"))
     np.testing.assert_array_equal(td.mask.numpy(), np.asarray(jd.mask))

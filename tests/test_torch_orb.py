@@ -67,6 +67,20 @@ def images():
     return {"noise": noise, "rendered": np.array(imgs[0])}
 
 
+@pytest.fixture(scope="module")
+def jax_keypoints(images):
+    """The reference's keypoints of each (image, detector config) the tests
+    use, each computed once for the module."""
+    cache = {}
+
+    def get(name, jcfg):
+        if (name, jcfg) not in cache:
+            cache[name, jcfg] = j_detect(jnp.asarray(images[name]), jcfg)
+        return cache[name, jcfg]
+
+    return get
+
+
 def _port_config(jcfg, cls):
     return config_from_dict(dataclasses.asdict(jcfg), cls)
 
@@ -104,9 +118,9 @@ def test_harris_response_matches_jax(images, sigma):
 
 
 @pytest.mark.parametrize("jcfg", [_FAST, _HARRIS], ids=["fast", "harris"])
-def test_detect_keypoints_matches_jax_as_sets(images, jcfg):
+def test_detect_keypoints_matches_jax_as_sets(images, jax_keypoints, jcfg):
     img = images["noise"]
-    jk = j_detect(jnp.asarray(img), jcfg)
+    jk = jax_keypoints("noise", jcfg)
     tk = tdet.detect_keypoints(torch.from_numpy(img), _port_config(jcfg, DetectorConfig))
     jmask, tmask = np.asarray(jk.mask), tk.mask.numpy()
     assert tmask.sum() == jmask.sum() > 20
@@ -141,9 +155,9 @@ def test_brief_pattern_is_identical(num_bits):
 
 @pytest.mark.parametrize("jcfg,name", [(_FAST, "noise"), (_HARRIS, "rendered")],
                          ids=["fast-noise", "harris-rendered"])
-def test_orb_describe_on_same_keypoints(images, jcfg, name):
+def test_orb_describe_on_same_keypoints(images, jax_keypoints, jcfg, name):
     img = images[name]
-    jk = j_detect(jnp.asarray(img), jcfg)
+    jk = jax_keypoints(name, jcfg)
     jd = j_orb(jnp.asarray(img), jk)
     td = tdesc.extract_descriptors(torch.from_numpy(img), keypoints_from_numpy(jk, device="cpu"),
                                    DescriptorConfig(kind="orb"))

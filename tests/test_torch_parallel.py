@@ -125,7 +125,9 @@ def ranks(problems, jax_staged, tmp_path_factory):
                    img1=problems["img1"], img2=problems["img2"],
                    seeds=np.arange(problems["img1"].shape[0]))
         for name, ref in jax_staged.items()}
-    inputs["jobs"] = ["init", "comm", "ring", "sparse_ba", "dense_ba", "pipeline", "staged"]
+    inputs["jobs"] = ["init", "comm", "ring", "sparse_ba", "dense_ba", "pipeline", "staged",
+                      "checkpoint"]
+    inputs["ckpt_dir"] = str(tmp_path_factory.mktemp("ckpt"))
     four = Spawned(4, inputs, tmp_path_factory.mktemp("ranks4"))
     two = Spawned(2, {"jobs": ["init", "multihost"]}, tmp_path_factory.mktemp("ranks2"))
     return four.results(), two.results()
@@ -476,3 +478,20 @@ def test_staged_two_view_matches_jax(ranks, jax_staged, name):
         assert i_ref >= 8
         assert abs(int(got["num_inliers"][i]) - i_ref) <= max(1, 0.05 * i_ref)
         assert abs(float(np.sum(np.asarray(ref["F"][i]) * got["F"][i].numpy()))) >= 0.99
+
+
+# -- checkpoint (utils/checkpoint.py) ---------------------------------------
+
+def test_checkpoint_restore_sharded(ranks):
+    """tests/test_utils.py::test_checkpoint_restore_sharded on the 4-rank
+    group: a [16, 4] tensor sharded over a ``model`` axis of 4, each rank
+    saving and restoring its own shard, the shards' gather equal to the
+    reference test's input; a step only rank 0 wrote never counts."""
+    four, _ = ranks
+    x = np.arange(64.0).reshape(16, 4)
+    for rank, r in enumerate(four):
+        out = r["checkpoint"]
+        assert torch.equal(out["restored"], out["local"])
+        np.testing.assert_array_equal(out["restored"].numpy(), x[4 * rank:4 * rank + 4])
+        np.testing.assert_array_equal(out["gathered"].numpy(), x)
+        assert out["steps"] == [0] and out["latest"] == 0

@@ -130,14 +130,25 @@ def _outlier_scene():
     return p1, p2, mask
 
 
-@pytest.mark.parametrize("backend", ["auto", "xla"])
-def test_ransac_fundamental_injected_samples_matches_jax(backend):
+H_OUTLIER = 128
+
+
+@pytest.fixture(scope="module")
+def outlier_reference():
+    """The reference's RANSAC on ``_outlier_scene`` and the minimal sets it
+    drew, shared by both backends' cases."""
     p1, p2, mask = _outlier_scene()
     key = jax.random.PRNGKey(0)
-    H = 128
     jp1, jp2, jmask = jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(mask)
-    ref = j_ransac(key, jp1, jp2, jmask, JRansacConfig(num_hypotheses=H, backend="xla"))
-    sp1, sp2 = j_sample(key, jmask, H, 8, (jp1, jp2))   # the sets ref used
+    ref = j_ransac(key, jp1, jp2, jmask, JRansacConfig(num_hypotheses=H_OUTLIER, backend="xla"))
+    sp1, sp2 = j_sample(key, jmask, H_OUTLIER, 8, (jp1, jp2))   # the sets ref used
+    return (p1, p2, mask), ref, (sp1, sp2)
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_ransac_fundamental_injected_samples_matches_jax(backend, outlier_reference):
+    (p1, p2, mask), ref, (sp1, sp2) = outlier_reference
+    H = H_OUTLIER
     out = ransac_fundamental(None, _t(p1), _t(p2), _t(mask),
                              RansacConfig(num_hypotheses=H, backend=backend),
                              samples=(_t(sp1), _t(sp2)))

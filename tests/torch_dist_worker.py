@@ -302,6 +302,35 @@ def staged(inp, rank, world):
 
 
 @job
+def checkpoint(inp, rank, world):
+    """The counterpart of tests/test_utils.py's sharded restore: a tensor
+    sharded over a 4-rank ``model`` axis, each rank saving and restoring its
+    own shard; then a step only rank 0 wrote, which must not count."""
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.parallel.mesh import host_local_to_global, make_mesh, shard
+    from points_matching_tpu_torch.utils.checkpoint import CheckpointManager
+
+    mesh = make_mesh((world,), ("model",))
+    x = torch.arange(64.0).reshape(16, 4)
+    local = shard(x, mesh, "model")
+    with CheckpointManager(inp["ckpt_dir"]) as mgr:
+        mgr.save(0, {"X": local})
+        mgr.wait()
+        dist.barrier()
+        restored = mgr.restore(0, template={"X": torch.zeros_like(local)})
+        if rank == 0:
+            mgr.save(1, {"X": local + 1})
+            mgr.wait()
+        dist.barrier()
+        steps, latest = mgr.all_steps(), mgr.latest_step()
+    gathered = host_local_to_global(mesh, "model", restored["X"])
+    dist.barrier()
+    return dict(local=local, restored=restored["X"], gathered=gathered, steps=steps,
+                latest=latest)
+
+
+@job
 def dslam(inp, rank, world):
     """Config 4's pipeline on the 16-frame sequence at world size 4 (2 data ×
     2 model) and at world size 2 (data only: the 2 × 2 mesh's data axis,
@@ -322,6 +351,21 @@ def dslam(inp, rank, world):
                          initial_cost=float(res.ba_stats.initial_cost),
                          final_cost=float(res.ba_stats.final_cost))
     return out
+
+
+@job
+def slam_demo(inp, rank, world):
+    """The SLAM demo's ``--distributed`` path as ``torchrun`` starts it:
+    ``WORLD_SIZE`` > 1 and a group already joined, so every rank runs on a
+    data × model mesh of the group (2 segments on 4 ranks: 2 × 2)."""
+    from points_matching_tpu_torch.data.datasets import load_kitti_sequence
+    from points_matching_tpu_torch.pipelines.slam import run_slam_demo
+
+    seq = load_kitti_sequence(inp["slam_tree"], max_frames=inp["slam_frames"], device="cpu")
+    run = run_slam_demo(seq, device="cpu", features=inp["slam_features"], distributed=True,
+                        segment_len=5, overlap=3, verbose=False)
+    return dict(numbers=run.numbers, trajectory=run.trajectory,
+                regs=run.result.registered_per_segment)
 
 
 def main() -> int:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (two-view SURF and ORB, the staged
-two-view pipeline, incremental SfM with loop closure, the pose graph,
-all-pairs scores, distributed SLAM, the SLAM demo on sequences from disk)
-once on one CUDA GPU.
+two-view pipeline, the bench head's 64 pairs in one call, incremental SfM
+with loop closure, the pose graph, all-pairs scores, distributed SLAM, the
+SLAM demo on sequences from disk) once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -54,6 +54,16 @@ exits non-zero before the result line:
    staged  — ``staged_two_view`` at world size 1 on 4 rendered pairs, SURF
              then ORB: launches, ms, and each pair equal to
              ``two_view_pipeline`` with the same RANSAC samples.
+   pairs   — the bench head's step (``bench.py:363 bench_tpu``) over the
+             pair axis: ``match_descriptors_points`` → ``ransac_fundamental``
+             on 64 pairs × 512 keypoints × 64-d, 30 % outliers, ratio 0.85,
+             512 hypotheses, bf16 and f32 matching, in one call each: K1b,
+             K3 and K2 launch once a step (64 times in the loop of one-pair
+             calls); with the same injected samples the batch equals the
+             loop (counts and masks, |ΔF| ≤ 1e-5); inliers ≥ half the
+             matches and F finite, unit-norm, rank 2 on every pair; the
+             median ms of a step (20 steps) and of the loop (3), pairs/s of
+             both, the host's eager launch time beside them.
 5. sfm     — BASELINE config 3 without loop closure: 100 rendered 512×384
              frames → Hessian/SURF on the card → ``run_incremental_sfm``
              (128 / 8,192 / 65,536, ``ba_every=4``, ``chunk_size=16``), held
@@ -114,9 +124,9 @@ exits non-zero before the result line:
              ``trace`` and ``checked`` on the card; GPU against CPU on the KITTI
              tree's first 16 frames.
 6. result  — one JSON line of the SfM, pose-graph, all-pairs, staged,
-             distributed and slam numbers, one of per-kernel numbers
+             pairs, distributed and slam numbers, one of per-kernel numbers
              (launches by path: surf, orb, sfm, loop, all_pairs, staged,
-             distributed, slam), then the last line
+             pairs, distributed, slam), then the last line
              ``{"ok": true, "device": {...}}``.
 
 Bounds are each kernel's work count on the inputs it was given
@@ -423,6 +433,23 @@ def _dispatch_us(dev, n: int = 2000) -> float:
         one.add_(1)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e6
+
+
+def _count_ops(fn) -> int:
+    """The aten ops ``fn`` dispatches (each one eager launch or view on
+    the host): what a host-bound path's time follows."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
 
 
 def _count_syncs(fn):
@@ -1035,6 +1062,145 @@ def _staged(dev, K_mod) -> dict:
         _check(dF <= 1e-5, f"staged {tag}: F differs from two_view_pipeline")
         out[tag] = dict(ms_per_batch=ms, pairs=4, per_pair=rows, max_dF=dF)
     out["launches"] = {k: launches["surf"][k] + launches["orb"][k] for k in launches["surf"]}
+    return out
+
+
+# The bench head's step (bench.py:363 bench_tpu, BASELINE's headline cell):
+# 64 pairs × 512 keypoints × 64-d SURF-class descriptors, 30 % outliers,
+# ratio 0.85, query-order matches, 512 hypotheses and 2 refits
+PAIRS_B, PAIRS_N, PAIRS_D, PAIRS_H = 64, 512, 64, 512
+PAIRS_STEPS, PAIRS_LOOPS = 20, 3
+
+
+def _pairs(dev, K_mod) -> dict:
+    """The bench head's step over the pair axis: ``match_descriptors_points``
+    on [64, 512, 64] → ``ransac_fundamental`` on [64, 512, 2], for bf16 and
+    f32 matching (the bench's workload: train rows are permuted noisy copies
+    of the query rows, the points ``_scenes``' with 30 % outliers).  Launches
+    of one batched step (each kernel once: K1b, K3, K2) and of the loop of
+    64 one-pair calls (64 each); with the same injected samples the batched
+    step equals the loop (matches and points exactly, inlier counts and
+    masks equal, |ΔF| ≤ 1e-5); gates on every pair (inliers ≥ half the
+    matches, F finite, unit-norm, rank 2); the aten ops a step dispatches
+    at 64 pairs and at one; the median ms of a step over
+    ``PAIRS_STEPS`` steps and of the loop over ``PAIRS_LOOPS`` (CUDA events
+    around each, one ``synchronize`` at the end, own draws), pairs/s of both
+    beside the host's eager launch time."""
+    import torch
+
+    from points_matching_tpu_torch.core.config import MatcherConfig, RansacConfig
+    from points_matching_tpu_torch.core.types import Descriptors
+    from points_matching_tpu_torch.geometry.ransac import ransac_fundamental, sample_minimal_points
+    from points_matching_tpu_torch.ops.matching import match_descriptors_points
+
+    B, N, D, H = PAIRS_B, PAIRS_N, PAIRS_D, PAIRS_H
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p1, p2_query, _ = _scenes(B, N, gen, dev)
+    q = torch.randn(B, N, D, generator=gen, device=dev)
+    q = q / q.norm(dim=-1, keepdim=True)
+    # train row j holds query perm[j]'s descriptor (noisy) and point
+    perm = torch.rand(B, N, generator=gen, device=dev).argsort(-1)
+    t = q.gather(1, perm[..., None].expand(B, N, D))
+    t = t + 0.1 * torch.randn(B, N, D, generator=gen, device=dev)
+    t = (t / t.norm(dim=-1, keepdim=True)).contiguous()
+    p2 = p2_query.gather(1, perm[..., None].expand(B, N, 2)).contiguous()
+    ones = torch.ones(B, N, dtype=torch.bool, device=dev)
+    rcfg = RansacConfig(num_hypotheses=H)
+    kernels = ("fused_l2_top2_points", "minimal_eight_point", "ransac_score_hypotheses")
+
+    def step(mcfg, i, generator, samples=None):
+        """Pairs ``i`` (a slice: the batch; an int: one pair) through the head."""
+        m, q2 = match_descriptors_points(Descriptors(q[i], ones[i]), Descriptors(t[i], ones[i]),
+                                         p2[i], mcfg)
+        return m, q2, ransac_fundamental(generator, p1[i], q2, m.mask, rcfg, samples=samples)
+
+    def loop(mcfg, generator, samples=None):
+        return [step(mcfg, i, generator, None if samples is None else
+                     (samples[0][i], samples[1][i])) for i in range(B)]
+
+    def event_ms(fn, reps):
+        """Median ms of ``fn`` over ``reps`` calls: CUDA events around each,
+        one synchronize at the end."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        ev[0].record()
+        for k in range(reps):
+            fn()
+            ev[k + 1].record()
+        torch.cuda.synchronize()
+        return float(np.median([ev[k].elapsed_time(ev[k + 1]) for k in range(reps)]))
+
+    out, launches = {}, {}
+    for dtype in ("bf16", "f32"):
+        mcfg = MatcherConfig(metric="l2", filter="ratio", ratio=0.85, compute_dtype=dtype,
+                             compact=False)
+        draws = torch.Generator(device=dev).manual_seed(0)
+        step(mcfg, slice(None), draws)                                   # warm-up
+        loop(mcfg, draws)
+        torch.cuda.synchronize()
+        K_mod.reset_launch_counts()
+        m, q2, _ = step(mcfg, slice(None), draws)
+        torch.cuda.synchronize()
+        launches[dtype] = K_mod.launch_counts()
+        K_mod.reset_launch_counts()
+        loop(mcfg, draws)
+        torch.cuda.synchronize()
+        loop_launches = K_mod.launch_counts()
+        print(f"pairs {dtype}: launches of one batched step {launches[dtype]}; "
+              f"of the {B}-call loop {loop_launches}")
+        _check(all(launches[dtype][k] == 1 for k in kernels)
+               and sum(launches[dtype].values()) == 3,
+               f"pairs {dtype}: the batched step did not launch K1b, K3, K2 once each")
+        _check(all(loop_launches[k] == B for k in kernels),
+               f"pairs {dtype}: the loop did not launch each kernel {B} times")
+
+        # the same injected samples through both: the batch equals the loop
+        samples = sample_minimal_points(torch.Generator(device=dev).manual_seed(1), m.mask,
+                                        H, 8, (p1, q2))
+        mb, q2b, eb = step(mcfg, slice(None), None, samples)
+        per = loop(mcfg, None, samples)
+        same_m = all(torch.equal(mb.mask[i], per[i][0].mask)
+                     and torch.equal(mb.train_idx[i], per[i][0].train_idx)
+                     and torch.equal(q2b[i], per[i][1]) for i in range(B))
+        same_inl = all(torch.equal(eb.inlier_mask[i], per[i][2].inlier_mask)
+                       and int(eb.num_inliers[i]) == int(per[i][2].num_inliers)
+                       for i in range(B))
+        dF = max(float((eb.F[i] - per[i][2].F).abs().max()) for i in range(B))
+        n_m = mb.mask.sum(-1).cpu()
+        n_in = eb.num_inliers.cpu()
+        F = eb.F.double().cpu()
+        sv = torch.linalg.svdvals(F)
+        norm_err = float((F.flatten(1).norm(dim=-1) - 1.0).abs().max())
+        rank = float((sv[:, 2] / sv[:, 0]).max())
+        print(f"pairs {dtype}: batch == {B} one-pair calls with the same samples: matches "
+              f"{same_m}, inlier masks and counts {same_inl}, max |dF| {dF:.3g} (tol 1e-05); "
+              f"matches {int(n_m.min())}-{int(n_m.max())}, inliers {int(n_in.min())}-"
+              f"{int(n_in.max())} (min inliers/matches {float((n_in / n_m).min()):.4f}), "
+              f"max ||F|-1| {norm_err:.3g}, max s3/s1 {rank:.3g}")
+        _check(same_m and same_inl and dF <= 1e-5,
+               f"pairs {dtype}: the batched step differs from the one-pair calls")
+        _check(bool(torch.isfinite(F).all()) and norm_err < 1e-4 and rank < 1e-4,
+               f"pairs {dtype}: an F is not finite, unit-norm and rank 2")
+        _check(bool((2 * n_in >= n_m).all()) and int(n_m.min()) >= 8,
+               f"pairs {dtype}: a pair has inliers below half its matches")
+
+        ops = {n: _count_ops(lambda: step(mcfg, i, draws)) for n, i in ((B, slice(None)),
+                                                                        (1, 0))}
+        print(f"pairs {dtype}: aten ops dispatched by a step of {B} pairs {ops[B]}, "
+              f"of one pair {ops[1]}")
+        ms = event_ms(lambda: step(mcfg, slice(None), draws), PAIRS_STEPS)
+        loop_ms = event_ms(lambda: loop(mcfg, draws), PAIRS_LOOPS)
+        disp = _dispatch_us(dev)
+        print(f"pairs {dtype}: {B} x {N} kp x {D}-d, {H} hyp: batched step {ms:.3f} ms "
+              f"(median of {PAIRS_STEPS}; {B / ms * 1e3:.1f} pairs/s), loop of {B} one-pair "
+              f"calls {loop_ms:.3f} ms (median of {PAIRS_LOOPS}; {B / loop_ms * 1e3:.1f} pairs/s), "
+              f"{loop_ms / ms:.2f}x; host eager launch {disp:.2f} us")
+        out[dtype] = dict(ms_per_step=ms, pairs_per_s=B / ms * 1e3, loop_ms=loop_ms,
+                          loop_pairs_per_s=B / loop_ms * 1e3, dispatch_us=disp,
+                          loop_launches={k: loop_launches[k] for k in kernels},
+                          aten_ops_step=ops[B], aten_ops_one_pair=ops[1],
+                          min_inlier_share=float((n_in / n_m).min()), max_dF=dF)
+    out["shape"] = [B, N, D, H]
+    out["launches"] = {k: launches["bf16"][k] + launches["f32"][k] for k in launches["bf16"]}
     return out
 
 
@@ -1902,6 +2068,10 @@ def main() -> int:
     report["staged"] = _staged(dev, K)
     phase_s["staged"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    report["pairs"] = _pairs(dev, K)
+    phase_s["pairs"] = time.perf_counter() - t_phase
+
     # -- 5. SfM: BASELINE config 3 (without loop closure), the JAX bench's
     # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
     for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
@@ -1935,6 +2105,7 @@ def main() -> int:
     sfm_launches = report["sfm"].pop("launches")
     loop_launches = report["sfm"]["loop"].pop("launches")
     staged_launches = report["staged"].pop("launches")
+    pairs_launches = report["pairs"].pop("launches")
     dist_launches = report["distributed"].pop("launches")
     slam_launches = report["slam"].pop("launches")
 
@@ -1942,7 +2113,8 @@ def main() -> int:
         by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
                        sfm=sfm_launches[name], loop=loop_launches[name],
                        all_pairs=all_pairs["launches"] if name == "fused_l2_top2" else 0,
-                       staged=staged_launches[name], distributed=dist_launches[name],
+                       staged=staged_launches[name], pairs=pairs_launches[name],
+                       distributed=dist_launches[name],
                        slam=slam_launches[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
@@ -1968,7 +2140,7 @@ def main() -> int:
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")
     print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba", "pose_graph",
-                                                        "all_pairs", "staged",
+                                                        "all_pairs", "staged", "pairs",
                                                         "distributed", "slam")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,10 +17,14 @@ Tensor = torch.Tensor
 
 
 def take(x: Tensor, i: Tensor) -> Tensor:
-    """``x[i]`` for a 0-d index tensor without reading it on the host
-    (plain indexing with a 0-d CUDA tensor converts it to a Python int,
-    which waits for the device)."""
-    return x.index_select(0, i.reshape(1).long())[0]
+    """``x[b, i[b]]`` for every leading index b, without reading ``i`` on
+    the host: ``x [*B, K, ...]`` and ``i [*B]`` give ``[*B, ...]``.  With a
+    0-d ``i`` (B = ()) it is ``x[i]``; plain indexing with a 0-d CUDA tensor
+    would convert it to a Python int, which waits for the device.  Over a
+    pair axis it picks each pair's winner in one gather."""
+    d = i.dim()
+    idx = i.long().reshape(*i.shape, *(1,) * (x.dim() - d))
+    return x.gather(d, idx.expand(*i.shape, 1, *x.shape[d + 1:])).squeeze(d)
 
 
 @dataclasses.dataclass
@@ -77,13 +81,14 @@ class Matches:
     """Fixed-capacity correspondence set between two keypoint sets.
 
     Entry i matches query index ``query_idx[i]`` to train index
-    ``train_idx[i]`` with descriptor distance ``distance[i]``.
+    ``train_idx[i]`` with descriptor distance ``distance[i]``.  A batch of
+    pairs carries a leading pair axis on every field ([P, M]).
 
     Attributes:
-      query_idx: [M] int32 — index into the query (image-1) keypoints.
-      train_idx: [M] int32 — index into the train (image-2) keypoints.
-      distance:  [M] float32 — descriptor distance.
-      mask:      [M] bool.
+      query_idx: [..., M] int32 — index into the query (image-1) keypoints.
+      train_idx: [..., M] int32 — index into the train (image-2) keypoints.
+      distance:  [..., M] float32 — descriptor distance.
+      mask:      [..., M] bool.
     """
 
     query_idx: Tensor
@@ -100,22 +105,25 @@ class Matches:
         return self.mask.sum(-1, dtype=torch.int32)
 
     def gather_points(self, kps1: Keypoints, kps2: Keypoints) -> Tuple[Tensor, Tensor]:
-        """Return ([M, 2], [M, 2]) matched point arrays (padded rows are
-        junk; use ``self.mask``)."""
+        """Return ([..., M, 2], [..., M, 2]) matched point arrays, each pair
+        from its own keypoints (padded rows are junk; use ``self.mask``)."""
         q = self.query_idx.long().clamp(0, kps1.capacity - 1)
         t = self.train_idx.long().clamp(0, kps2.capacity - 1)
-        return kps1.xy[q], kps2.xy[t]
+        return (torch.take_along_dim(kps1.xy, q[..., None], dim=-2),
+                torch.take_along_dim(kps2.xy, t[..., None], dim=-2))
 
 
 @dataclasses.dataclass
 class TwoViewEstimate:
     """Result of two-view geometry estimation.
 
+    A batch of pairs carries a leading pair axis on every field.
+
     Attributes:
-      F:             [3, 3] fundamental matrix (rank 2, Frobenius-normalized).
-      inlier_mask:   [M] bool over the match list used for estimation.
-      num_inliers:   scalar int32.
-      residual_mean: scalar float32 — mean |p1ᵀ F p2| over inliers (the
+      F:             [..., 3, 3] fundamental matrix (rank 2, Frobenius-normalized).
+      inlier_mask:   [..., M] bool over the match list used for estimation.
+      num_inliers:   [...] int32.
+      residual_mean: [...] float32 — mean |p1ᵀ F p2| over inliers (the
                      reference demo's audit statistic).
     """
 

@@ -29,23 +29,26 @@ def decompose_essential(E: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 def recover_pose(E: Tensor, p1_norm: Tensor, p2_norm: Tensor, weights: Tensor
                  ) -> Tuple[Pose, Tensor, Tensor]:
     """The (R, t) candidate with the most points in front of both cameras
-    (``cv::recoverPose``).  The 4 candidates are scored as one batch; on a
-    tie the first candidate wins, as ``jnp.argmax``.
+    (``cv::recoverPose``), for one E or a batch.  Each E's 4 candidates are
+    scored as one batch; on a tie the first candidate wins, as
+    ``jnp.argmax``, per E.
 
     Args:
-      E: [3, 3]; p1_norm, p2_norm: [N, 2] normalized coordinates;
-      weights: [N] validity.
+      E: [..., 3, 3]; p1_norm, p2_norm: [..., N, 2] normalized coordinates;
+      weights: [..., N] validity.
 
-    Returns (pose cam1 → cam2, X [N, 3] in the cam-1 frame for the winner,
-    cheirality mask [N]).
+    Returns (pose cam1 → cam2 [...], X [..., N, 3] in the cam-1 frame for
+    the winner, cheirality mask [..., N]).
     """
     R2, t2, _ = decompose_essential(E)
-    Rs = torch.stack([R2[0], R2[0], R2[1], R2[1]])             # [4, 3, 3]
-    ts = torch.stack([t2[0], t2[1], t2[0], t2[1]])             # [4, 3]
-    eye34 = torch.eye(3, 4, dtype=E.dtype, device=E.device).expand(4, 3, 4)
+    Rs = torch.stack([R2[..., 0, :, :], R2[..., 0, :, :],
+                      R2[..., 1, :, :], R2[..., 1, :, :]], -3)    # [..., 4, 3, 3]
+    ts = torch.stack([t2[..., 0, :], t2[..., 1, :], t2[..., 0, :], t2[..., 1, :]], -2)
+    eye34 = torch.eye(3, 4, dtype=E.dtype, device=E.device).expand(*Rs.shape[:-2], 3, 4)
     P2 = torch.cat([Rs, ts[..., None]], -1)
-    X, ok = triangulate_dlt(eye34, P2, p1_norm.expand(4, -1, -1),
-                            p2_norm.expand(4, -1, -1))
-    good = ok & (weights > 0)
-    best = good.sum(-1).argmax()                               # first on ties
+    n = p1_norm.shape[-2]
+    X, ok = triangulate_dlt(eye34, P2, p1_norm[..., None, :, :].expand(*Rs.shape[:-2], n, 2),
+                            p2_norm[..., None, :, :].expand(*Rs.shape[:-2], n, 2))
+    good = ok & (weights[..., None, :] > 0)                    # [..., 4, N]
+    best = good.sum(-1).argmax(-1)                             # first on ties
     return Pose(R=take(Rs, best), t=take(ts, best)), take(X, best), take(good, best)

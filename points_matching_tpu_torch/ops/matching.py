@@ -13,6 +13,11 @@ K4 for 'hamming', ``ops/kernels/hamming_kernel.py`` — the CUDA kernel on
 CUDA tensors, its plain version on CPU tensors); ``'xla'`` materializes the
 [N1, N2] distance matrix.  Hamming distances are float32 counts and the
 filters compare them raw (no sqrt).
+
+The matchers take one pair ([N, D] descriptors) or a leading pair axis
+([P, N, D]), the port of the JAX package's ``jax.vmap`` over pairs: every
+pair is filtered, cross-checked and compacted on its own, and a batch
+launches each kernel once for all P pairs.
 """
 from __future__ import annotations
 
@@ -95,21 +100,32 @@ def knn_match(d1: Descriptors, d2: Descriptors, k: int = 2, metric: str = "l2",
 
 def _use_fused(d1: Descriptors, config: MatcherConfig) -> bool:
     """The fused kernels (K1 for 'l2', K4 for 'hamming') serve the
-    'auto'/'pallas' backends (no size gate: that was a TPU crossover)."""
+    'auto'/'pallas' backends for one pair or a batch (no size gate: that
+    was a TPU crossover)."""
     if config.backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend: {config.backend!r}")
-    return (config.metric in ("l2", "hamming") and d1.data.dim() == 2
-            and config.backend != "xla")
+    return config.metric in ("l2", "hamming") and config.backend != "xla"
+
+
+def _pairs(x: Tensor) -> Tensor:
+    """[..., N, C] → [B, N, C]: the leading axes (none for one pair) as
+    the kernels' one pair axis."""
+    return x.reshape(-1, *x.shape[-2:]).contiguous()
 
 
 def _fused_top2(dq: Descriptors, dt: Descriptors, config: MatcherConfig):
+    """(dist [..., N1, 2], idx [..., N1, 2]) of K1 or K4, one launch for
+    every pair."""
+    lead = dq.data.shape[:-2]
+    t_mask = dt.mask.reshape(-1, dt.mask.shape[-1]).contiguous()
     if config.metric == "hamming":
-        dist, idx = fused_hamming_top2(dq.data[None], dt.data[None], dt.mask[None])
+        dist, idx = fused_hamming_top2(_pairs(dq.data), _pairs(dt.data), t_mask)
     else:
-        dist, idx = fused_l2_top2(dq.data[None], dt.data[None], dt.mask[None],
+        dist, idx = fused_l2_top2(_pairs(dq.data), _pairs(dt.data), t_mask,
                                   compute_dtype=config.compute_dtype)
+    dist, idx = dist.reshape(*lead, *dist.shape[1:]), idx.reshape(*lead, *idx.shape[1:])
     # query-side masking (the kernel only masks train rows)
-    return torch.where(dq.mask[:, None], dist[0], _BIG), idx[0]
+    return torch.where(dq.mask[..., None], dist, _BIG), idx
 
 
 def _filter(config: MatcherConfig, valid: Tensor, best_reported: Tensor,
@@ -132,14 +148,24 @@ def _filter(config: MatcherConfig, valid: Tensor, best_reported: Tensor,
     return keep & valid
 
 
+def _query_idx(keep: Tensor) -> Tensor:
+    """[..., N1] int32 query index of each row, one copy per pair."""
+    n1 = keep.shape[-1]
+    return torch.arange(n1, dtype=torch.int32, device=keep.device).expand(keep.shape)
+
+
 def match_descriptors(d1: Descriptors, d2: Descriptors,
                       config: MatcherConfig = MatcherConfig()) -> Matches:
     """1-NN matching with the configured filter.
 
+    ``d1``, ``d2``: one pair ([N, D] data) or P pairs ([P, N, D], the
+    masks [P, N]); every pair is matched on its own, and the fused kernel
+    launches once for all of them.
+
     Returns a fixed-capacity Matches (capacity = query capacity, or
-    ``config.max_matches``); with ``compact`` the survivors form a dense
-    prefix, otherwise row i is query i's match and the mask says whether it
-    survived.
+    ``config.max_matches``) with the descriptors' leading axes; with
+    ``compact`` each pair's survivors form a dense prefix, otherwise row i
+    is query i's match and the mask says whether it survived.
     """
     k = 2 if config.filter == "ratio" else 1
     use_fused = _use_fused(d1, config)
@@ -162,6 +188,7 @@ def match_descriptors(d1: Descriptors, d2: Descriptors,
     keep = _filter(config, valid, best_reported, second_reported)
 
     n1 = d1.capacity
+    query_idx = _query_idx(keep)
     if config.cross_check:
         # mutual 1-NN: train j's best query must be this query i
         if use_fused:
@@ -169,10 +196,9 @@ def match_descriptors(d1: Descriptors, d2: Descriptors,
         else:
             _, it = knn_match(d2, d1, k=1, metric=config.metric,
                               compute_dtype=config.compute_dtype)
-        reverse_best = it[..., 0][best_idx.long().clamp(0, d2.capacity - 1)]
-        keep = keep & (reverse_best == torch.arange(n1, device=keep.device))
+        reverse_best = it[..., 0].gather(-1, best_idx.long().clamp(0, d2.capacity - 1))
+        keep = keep & (reverse_best == query_idx)
 
-    query_idx = torch.arange(n1, dtype=torch.int32, device=keep.device)
     best_idx = best_idx.to(torch.int32)
     if not config.compact:
         return Matches(
@@ -182,15 +208,16 @@ def match_descriptors(d1: Descriptors, d2: Descriptors,
             mask=keep,
         )
 
-    # stable compaction of the survivors to the front: discarded entries
-    # all land in an overflow slot that the final slice drops
+    # stable compaction of each pair's survivors to its front: discarded
+    # entries all land in an overflow slot that the final slice drops
     cap = min(config.max_matches or n1, n1)
-    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, n1)
-    n_keep = keep.sum()
+    slot = torch.where(keep, torch.cumsum(keep, -1) - 1, n1)
+    n_keep = keep.sum(-1, keepdim=True)
 
     def compact(vals: Tensor, fill) -> Tensor:
-        buf = torch.full((n1 + 1,), fill, dtype=vals.dtype, device=vals.device)
-        return buf.scatter(0, slot, vals)[:cap]
+        buf = torch.full((*keep.shape[:-1], n1 + 1), fill, dtype=vals.dtype,
+                         device=vals.device)
+        return buf.scatter(-1, slot, vals)[..., :cap]
 
     return Matches(
         query_idx=compact(query_idx, 0),
@@ -203,14 +230,16 @@ def match_descriptors(d1: Descriptors, d2: Descriptors,
 def match_descriptors_points(d1: Descriptors, d2: Descriptors, t_points: Tensor,
                              config: MatcherConfig = MatcherConfig()
                              ) -> Tuple[Matches, Tensor]:
-    """Query-order 1-NN matching + the matched TRAIN POINT per query row.
+    """Query-order 1-NN matching + the matched TRAIN POINT per query row,
+    for one pair or P pairs (``t_points`` [..., N2, C] with the
+    descriptors' leading axes).
 
     On the fused path (metric 'l2', no cross-check, no compaction, filter
     ratio/threshold/none, backend 'auto'/'pallas') the point comes out of
-    the matching kernel (K1b); anything else runs ``match_descriptors`` and
-    an explicit gather.
+    the matching kernel (K1b, one launch for every pair); anything else
+    runs ``match_descriptors`` and an explicit gather.
 
-    Returns (Matches in query order, pts [N1, P]) with
+    Returns (Matches in query order, pts [..., N1, C]) with
     ``pts[i] == t_points[train_idx[i]]`` on EVERY row — filtered rows report
     train_idx 0 and t_points[0] on both paths.
     """
@@ -223,21 +252,24 @@ def match_descriptors_points(d1: Descriptors, d2: Descriptors, t_points: Tensor,
     )
     if not fast:
         m = match_descriptors(d1, d2, config)
-        n2 = t_points.shape[0]
-        return m, t_points[m.train_idx.long().clamp(0, n2 - 1)]
+        n2 = t_points.shape[-2]
+        idx = m.train_idx.long().clamp(0, n2 - 1)
+        return m, torch.take_along_dim(t_points, idx[..., None], dim=-2)
 
+    lead = d1.data.shape[:-2]
     dist, idx, pts = fused_l2_top2_points(
-        d1.data[None], d2.data[None], d2.mask[None], t_points[None],
+        _pairs(d1.data), _pairs(d2.data),
+        d2.mask.reshape(-1, d2.mask.shape[-1]).contiguous(), _pairs(t_points),
         compute_dtype=config.compute_dtype)
-    dist, idx, pts = dist[0], idx[0], pts[0]
-    dist = torch.where(d1.mask[:, None], dist, _BIG)
+    dist, idx, pts = (x.reshape(*lead, *x.shape[1:]) for x in (dist, idx, pts))
+    dist = torch.where(d1.mask[..., None], dist, _BIG)
     best = dist[..., 0]
     valid = d1.mask & (best < _BIG / 2)
     keep = _filter(config, valid, torch.sqrt(best), torch.sqrt(dist[..., 1]))
     # filtered rows report train_idx 0, so they carry t_points[0]
-    pts = torch.where(keep[:, None], pts, t_points[0][None, :])
+    pts = torch.where(keep[..., None], pts, t_points[..., :1, :])
     m = Matches(
-        query_idx=torch.arange(d1.capacity, dtype=torch.int32, device=keep.device),
+        query_idx=_query_idx(keep),
         train_idx=torch.where(keep, idx[..., 0], 0),
         distance=torch.where(keep, torch.sqrt(best), 0.0),
         mask=keep,

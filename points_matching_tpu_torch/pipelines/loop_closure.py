@@ -5,8 +5,9 @@
 Loop detection is the all-pairs covisibility sweep (``parallel/all_pairs``,
 kernel K1 on the card): frame-descriptor sets score against each other,
 and candidates are high-scoring pairs at least ``min_gap`` frames apart.
-Each candidate is verified by two-view geometry (match on K1 → RANSAC F on
-K3 and K2 → E → pose from E, with a parallax gate); verified loops become
+The candidates are verified as one batch by two-view geometry (match on K1
+→ RANSAC F on K3 and K2 → E → pose from E, with a parallax gate; each
+kernel launched once for all candidates); verified loops become
 pose-graph edges whose relative pose comes from E, with the translation
 scale borrowed from the current trajectory (monocular scale is
 unobservable from one pair).  The odometry chain and the loop edges are
@@ -76,16 +77,33 @@ def detect_loop_candidates(
     return cands[:max_candidates]
 
 
-def _verify_one(kps_i, desc_i, mask_i, kps_j, desc_j, mask_j, K: CameraIntrinsics,
-                config: SfMConfig, generator, samples: Optional[Samples],
-                min_inliers: int):
-    """Geometric verification of one candidate, all on the device:
-    (ok, R, t, inliers) with t unit or zero."""
+def verify_loops(
+    kps_i: Tensor, desc_i: Tensor, mask_i: Tensor,
+    kps_j: Tensor, desc_j: Tensor, mask_j: Tensor,
+    K: CameraIntrinsics,
+    config: SfMConfig,
+    generator: Optional[torch.Generator],
+    min_inliers: int = 30,
+    f_samples: Optional[Sequence[Samples]] = None,
+) -> Tuple[Tensor, Pose, Tensor]:
+    """Geometric verification of C candidates (inputs stacked [C, ...]) as
+    one batch over the candidate axis, the port of the reference's
+    ``_verify_loops_batched``: frame j's features matched to frame i's →
+    RANSAC F → E → (R, t̂) → the parallax gate → the ``ok`` rule, each
+    kernel launched once for all C.  Returns (ok [C], pose_i←j [C] with
+    unit or zero translation, inliers [C]), on the device: nothing is read
+    on the host.  ``f_samples``: one injected (sp1, sp2) [H, 8, 2] pair per
+    candidate (then ``generator`` is not used)."""
+    C = kps_i.shape[0]
+    if f_samples is not None and len(f_samples) != C:
+        raise ValueError(f"{len(f_samples)} sample sets for {C} candidates")
+    samples = None if f_samples is None else \
+        tuple(torch.stack([s[k] for s in f_samples]) for k in range(2))
     m = match_descriptors(Descriptors(data=desc_j, mask=mask_j),
                           Descriptors(data=desc_i, mask=mask_i), config.two_view.matcher)
-    n = kps_j.shape[0]
-    pj = kps_j[m.query_idx.long().clamp(0, n - 1)]
-    pi = kps_i[m.train_idx.long().clamp(0, n - 1)]
+    n = kps_j.shape[-2]
+    pj = torch.take_along_dim(kps_j, m.query_idx.long().clamp(0, n - 1)[..., None], dim=-2)
+    pi = torch.take_along_dim(kps_i, m.train_idx.long().clamp(0, n - 1)[..., None], dim=-2)
     est = ransac_fundamental(generator, pj, pi, m.mask, config.two_view.ransac,
                              samples=samples)
     Km = K.matrix()
@@ -102,41 +120,16 @@ def _verify_one(kps_i, desc_i, mask_i, kps_j, desc_j, mask_j, K: CameraIntrinsic
         r = torch.cat([p, torch.ones_like(p[..., :1])], -1)
         return r / torch.linalg.vector_norm(r, dim=-1, keepdim=True)
 
-    ri_rot = rays(pjn) @ pose.R.T                  # frame-j rays in frame i
+    ri_rot = rays(pjn) @ pose.R.transpose(-1, -2)   # frame-j rays in frame i
     cosang = (rays(pin) * ri_rot).sum(-1).clamp(-1.0, 1.0)
     ang = torch.where(w, torch.arccos(cosang), torch.inf)
-    k = (w.sum(dtype=torch.int64) // 2).clamp_min(0)
-    low_parallax = take(torch.sort(ang).values, k) < 0.01
+    k = (w.sum(-1, dtype=torch.int64) // 2).clamp_min(0)
+    low_parallax = take(torch.sort(ang, -1).values, k) < 0.01   # [C]
 
-    t = torch.where(low_parallax, torch.zeros_like(pose.t), pose.t)
-    cheir_ok = cheir.sum(dtype=torch.int32) >= min_inliers // 2
+    t = torch.where(low_parallax[..., None], torch.zeros_like(pose.t), pose.t)
+    cheir_ok = cheir.sum(-1, dtype=torch.int32) >= min_inliers // 2
     ok = (est.num_inliers >= min_inliers) & (low_parallax | cheir_ok)
-    return ok, pose.R, t, est.num_inliers
-
-
-def verify_loops(
-    kps_i: Tensor, desc_i: Tensor, mask_i: Tensor,
-    kps_j: Tensor, desc_j: Tensor, mask_j: Tensor,
-    K: CameraIntrinsics,
-    config: SfMConfig,
-    generator: Optional[torch.Generator],
-    min_inliers: int = 30,
-    f_samples: Optional[Sequence[Samples]] = None,
-) -> Tuple[Tensor, Pose, Tensor]:
-    """Geometric verification of C candidates (inputs stacked [C, ...]):
-    frame j's features matched to frame i's → RANSAC F → E → (R, t̂) →
-    the parallax gate → the ``ok`` rule.  Returns (ok [C], pose_i←j [C]
-    with unit or zero translation, inliers [C]), on the device: nothing is
-    read on the host.  ``f_samples``: one injected (sp1, sp2) [H, 8, 2]
-    pair per candidate (then ``generator`` is not used)."""
-    C = kps_i.shape[0]
-    if f_samples is not None and len(f_samples) != C:
-        raise ValueError(f"{len(f_samples)} sample sets for {C} candidates")
-    out = [_verify_one(kps_i[c], desc_i[c], mask_i[c], kps_j[c], desc_j[c], mask_j[c],
-                       K, config, generator, None if f_samples is None else f_samples[c],
-                       min_inliers) for c in range(C)]
-    ok, R, t, ninl = (torch.stack(x) for x in zip(*out))
-    return ok, Pose(R=R, t=t), ninl
+    return ok, Pose(R=pose.R, t=t), est.num_inliers
 
 
 def verify_loop(

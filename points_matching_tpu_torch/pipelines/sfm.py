@@ -7,7 +7,8 @@ Each registered frame: match to the previous frame and to the landmark bank
 (kernel K1, three launches with the bank's cross-check), RANSAC PnP with a
 motion prior, observation append, triangulation of new landmarks; every
 ``ba_every`` frames a windowed sparse BA.  The bootstrap runs match →
-RANSAC F (kernels K3 and K2) → E → pose → triangulation.
+RANSAC F (kernels K3 and K2, once for all its candidates) → E → pose →
+triangulation.
 
 The reference jits each step and scans a chunk of frames on the device;
 here the steps are eager PyTorch and the chunk is a host loop.  The host
@@ -185,8 +186,10 @@ def bootstrap_two_view(
     ``config.bootstrap_candidates`` independent RANSAC runs are scored by
     their cheirality-consistent landmark count (the first wins a tie), not
     by epipolar inliers: a low-parallax F with many inliers can still put
-    many points behind a camera.  ``f_samples`` [candidates, H, 8] injects
-    the minimal sets as row indices into the match list.
+    many points behind a camera.  The candidates run as one batch over a
+    candidate axis (one launch of each kernel; the reference vmaps them), no
+    sequential retries.  ``f_samples`` [candidates, H, 8] injects the
+    minimal sets as row indices into the match list.
     """
     tv = config.two_view
     matches = match_descriptors(Descriptors(data=desc1, mask=mask1),
@@ -197,27 +200,19 @@ def bootstrap_two_view(
     p1n, p2n = K.normalize_points(p1), K.normalize_points(p2)
     Km = K.matrix()
 
-    cands = []
-    for c in range(config.bootstrap_candidates):
-        samples = None if f_samples is None else (p1[f_samples[c].long()],
-                                                  p2[f_samples[c].long()])
-        est = ransac_fundamental(generator, p1, p2, matches.mask, tv.ransac,
-                                 samples=samples)
-        E = essential_from_fundamental(est.F, Km, Km)
-        w = matches.mask & est.inlier_mask
-        pose2, X_cam1, cheir = recover_pose(E, p1n, p2n, w)
-        z = X_cam1[..., 2]
-        # depth sanity: drop points behind / too far (dimensionless |t| = 1)
-        good = w & cheir & (z > 0.05) & (z < 100.0)
-        cands.append((est.num_inliers, pose2, X_cam1, good))
-    b = torch.stack([_count(c[3]) for c in cands]).argmax()
-
-    def pick(i):
-        return take(torch.stack([c[i] for c in cands]), b)
-
-    n_inl, X_cam1, good = pick(0), pick(2), pick(3)
-    pose2 = Pose(R=take(torch.stack([c[1].R for c in cands]), b),
-                 t=take(torch.stack([c[1].t for c in cands]), b))
+    C = config.bootstrap_candidates
+    samples = None if f_samples is None else (p1[f_samples.long()], p2[f_samples.long()])
+    est = ransac_fundamental(generator, p1.expand(C, -1, -1), p2.expand(C, -1, -1),
+                             matches.mask.expand(C, -1), tv.ransac, samples=samples)
+    E = essential_from_fundamental(est.F, Km, Km)                 # [C, 3, 3]
+    w = matches.mask & est.inlier_mask
+    pose_c, X_c, cheir = recover_pose(E, p1n.expand(C, -1, -1), p2n.expand(C, -1, -1), w)
+    z = X_c[..., 2]
+    # depth sanity: drop points behind / too far (dimensionless |t| = 1)
+    good_c = w & cheir & (z > 0.05) & (z < 100.0)                 # [C, N]
+    b = good_c.sum(-1).argmax()                                   # first on ties
+    n_inl, X_cam1, good = take(est.num_inliers, b), take(X_c, b), take(good_c, b)
+    pose2 = Pose(R=take(pose_c.R, b), t=take(pose_c.t, b))
 
     L_cap = state.X.shape[0]
     safe = _append_positions(L_cap, state.num_lms, good)

@@ -477,9 +477,10 @@ def test_incremental_sfm_gpu_matches_cpu(dev):
     gpu = run_incremental_sfm([tuple(x.to(dev) for x in f) for f in frames], K, cfg)
     counts = kernels.launch_counts()
     cpu = run_incremental_sfm(frames, K, cfg)
-    # K1 at D = 32: the bootstrap's match and three a registered frame
+    # K1 at D = 32: the bootstrap's match and three a registered frame; K3
+    # and K2 once for the bootstrap's 4 RANSAC candidates (one batch)
     assert counts["fused_l2_top2"] == 1 + 3 * 8
-    assert counts["minimal_eight_point"] == counts["ransac_score_hypotheses"] == 4
+    assert counts["minimal_eight_point"] == counts["ransac_score_hypotheses"] == 1
     assert gpu.trajectory.is_cuda and all(gpu.registered) and all(cpu.registered)
     # tests/test_sfm.py's ATE bound, for both; the aligned trajectories
     # within 2 % of the ~3.2-unit extent of each other
@@ -660,8 +661,10 @@ def test_close_loops_gpu_matches_cpu(dev):
     _, cands = close_loops(gposes, 12, gframes, K, cfg)
     counts = kernels.launch_counts()
     assert cands and any(c.verified for c in cands)
-    assert counts["fused_l2_top2"] > 12 and counts["minimal_eight_point"] == len(cands)
-    assert counts["ransac_score_hypotheses"] == len(cands)
+    # all pairs (a launch a train frame), then every candidate verified in
+    # one batch: one more K1, K3 and K2 launch each
+    assert counts["fused_l2_top2"] == 12 + 1 and counts["minimal_eight_point"] == 1
+    assert counts["ransac_score_hypotheses"] == 1
     sgen = torch.Generator(device=dev).manual_seed(1)
     samples = []
     for c in cands:
@@ -798,3 +801,95 @@ def test_chip_peaks_reads_the_h100_row(dev):
     assert rep.unit == "flops" and rep.bound_s == bound(fused_l2_top2.work(q, t, t_mask),
                                                         peaks)["bound_ms"] / 1e3
     assert 0 < rep.fraction_of_roofline <= 1
+
+
+def _head_pairs(gen, P, N, D, dev):
+    """P pairs of the bench head's workload: train rows are permuted noisy
+    copies of the query rows; the train points follow a pure translation
+    of the first camera (0.5 px noise), the first 30 % of the queries'
+    partners are outliers."""
+    q = _unit(gen, P, N, D, dev=dev)
+    perm = torch.rand(P, N, generator=gen, device=dev).argsort(-1)
+    t = q.gather(1, perm[..., None].expand(P, N, D))
+    t = t + 0.1 * torch.randn(P, N, D, generator=gen, device=dev)
+    t = (t / t.norm(dim=-1, keepdim=True)).contiguous()
+    p1 = torch.rand(P, N, 2, generator=gen, device=dev) * 640
+    depth = 4 + 8 * torch.rand(P, N, 1, generator=gen, device=dev)
+    X = torch.cat([(p1 - 320) / 512, torch.ones_like(depth)], -1) * depth
+    X2 = X + torch.tensor([0.5, 0.05, 0.02], device=dev)
+    p2 = X2[..., :2] / X2[..., 2:] * 512 + 320
+    p2 = p2 + 0.5 * torch.randn(P, N, 2, generator=gen, device=dev)
+    p2[:, :int(0.3 * N)] = torch.rand(P, int(0.3 * N), 2, generator=gen, device=dev) * 640
+    p2 = p2.gather(1, perm[..., None].expand(P, N, 2)).contiguous()
+    return q, t, p1.contiguous(), p2
+
+
+@pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])
+def test_pair_axis_equals_one_pair_calls(dev, compute_dtype):
+    """8 pairs through match_descriptors_points → ransac_fundamental in one
+    call and pair by pair, with the same injected samples: the same matches
+    and points, equal inlier masks and counts, F within 1e-5."""
+    from points_matching_tpu_torch.core.config import MatcherConfig, RansacConfig
+    from points_matching_tpu_torch.core.types import Descriptors
+    from points_matching_tpu_torch.geometry.ransac import ransac_fundamental, sample_minimal_points
+    from points_matching_tpu_torch.ops.matching import match_descriptors_points
+
+    P, N, D, H = 8, 512, 64, 512
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, t, p1, p2 = _head_pairs(gen, P, N, D, dev)
+    ones = torch.ones(P, N, dtype=torch.bool, device=dev)
+    mcfg = MatcherConfig(ratio=0.85, compute_dtype=compute_dtype, compact=False)
+    rcfg = RansacConfig(num_hypotheses=H)
+    m, q2 = match_descriptors_points(Descriptors(q, ones), Descriptors(t, ones), p2, mcfg)
+    samples = sample_minimal_points(gen, m.mask, H, 8, (p1, q2))
+    est = ransac_fundamental(None, p1, q2, m.mask, rcfg, samples=samples)
+    for i in range(P):
+        mi, q2i = match_descriptors_points(Descriptors(q[i], ones[i]), Descriptors(t[i], ones[i]),
+                                           p2[i], mcfg)
+        assert torch.equal(mi.mask, m.mask[i]) and torch.equal(mi.train_idx, m.train_idx[i])
+        assert torch.equal(q2i, q2[i])
+        one = ransac_fundamental(None, p1[i], q2i, mi.mask, rcfg,
+                                 samples=(samples[0][i], samples[1][i]))
+        assert int(one.num_inliers) == int(est.num_inliers[i])
+        assert torch.equal(one.inlier_mask, est.inlier_mask[i])
+        torch.testing.assert_close(one.F, est.F[i], atol=1e-5, rtol=0)
+        assert 2 * int(est.num_inliers[i]) >= int(m.mask[i].sum())
+
+
+def test_pair_axis_launches_each_kernel_once(dev):
+    """A batched call leaves each kernel's launch counter one higher (K1 and
+    K4 twice with the cross-check: the second direction)."""
+    from points_matching_tpu_torch.core.config import MatcherConfig, RansacConfig
+    from points_matching_tpu_torch.core.types import Descriptors
+    from points_matching_tpu_torch.geometry.ransac import ransac_fundamental
+    from points_matching_tpu_torch.ops.kernels import launch_counts
+    from points_matching_tpu_torch.ops.matching import match_descriptors, match_descriptors_points
+
+    P, N, D = 8, 512, 64
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, t, p1, p2 = _head_pairs(gen, P, N, D, dev)
+    ones = torch.ones(P, N, dtype=torch.bool, device=dev)
+    d1, d2 = Descriptors(q, ones), Descriptors(t, ones)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, P, N, 8), generator=gen, device=dev,
+                         dtype=torch.int32)
+    b1, b2 = (Descriptors(x, ones, binary=True) for x in bits)
+
+    def delta(fn):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    _, d = delta(lambda: match_descriptors(d1, d2, MatcherConfig()))
+    assert d == {"fused_l2_top2": 1}
+    _, d = delta(lambda: match_descriptors(d1, d2, MatcherConfig(cross_check=True)))
+    assert d == {"fused_l2_top2": 2}
+    _, d = delta(lambda: match_descriptors(b1, b2, MatcherConfig(metric="hamming")))
+    assert d == {"fused_hamming_top2": 1}
+    (m, q2), d = delta(lambda: match_descriptors_points(d1, d2, p2, MatcherConfig(compact=False)))
+    assert d == {"fused_l2_top2_points": 1}
+    gen_r = torch.Generator(device=dev).manual_seed(2)
+    est, d = delta(lambda: ransac_fundamental(gen_r, p1, q2, m.mask, RansacConfig()))
+    assert d == {"minimal_eight_point": 1, "ransac_score_hypotheses": 1}
+    assert est.F.shape == (P, 3, 3) and bool(torch.isfinite(est.F).all())

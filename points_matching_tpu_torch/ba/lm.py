@@ -59,15 +59,17 @@ def make_ba_state(poses: Pose, X: Tensor, uv: Tensor, mask: Tensor,
                    cam_fixed=torch.arange(C, device=X.device) < num_fixed_cameras)
 
 
-def robust_cost(r: Tensor, mask: Tensor, huber_delta: float) -> Tensor:
-    """Σ over valid rows of ½‖r‖² (or the Huber loss of ‖r‖)."""
+def robust_cost(r: Tensor, mask: Tensor, huber_delta: float, dims=None) -> Tensor:
+    """Σ over valid rows of ½‖r‖² (or the Huber loss of ‖r‖): over every
+    row, or over the axes ``dims`` (a cost per leading index)."""
     if huber_delta > 0:
         n = torch.linalg.vector_norm(r, dim=-1)
         per = torch.where(n <= huber_delta, 0.5 * n ** 2,
                           huber_delta * (n - 0.5 * huber_delta))
     else:
         per = 0.5 * (r * r).sum(-1)
-    return torch.where(mask, per, torch.zeros_like(per)).sum()
+    per = torch.where(mask, per, torch.zeros_like(per))
+    return per.sum() if dims is None else per.sum(dims)
 
 
 def ba_cost(state: BAState, K: CameraIntrinsics, huber_delta: float = 0.0,
@@ -81,7 +83,7 @@ def ba_cost(state: BAState, K: CameraIntrinsics, huber_delta: float = 0.0,
 def retract(poses: Pose, cam_fixed: Tensor, dc: Tensor) -> Pose:
     """Left-multiplicative retraction of the pose deltas; fixed cameras
     get a zero delta, which leaves them exactly unchanged."""
-    dc = torch.where(cam_fixed[:, None], torch.zeros_like(dc), dc)
+    dc = torch.where(cam_fixed[..., None], torch.zeros_like(dc), dc)
     Rd, td = se3_exp(dc)
     return Pose(R=Rd @ poses.R, t=(Rd @ poses.t[..., None])[..., 0] + td)
 
@@ -93,45 +95,56 @@ class LMStats(NamedTuple):
     lam: Tensor
 
 
-def lm_loop(state, cost_fn, step_fn, config: BAConfig):
-    """The LM loop both engines share.
+def lm_loop(state, cost_fn, step_fn, config: BAConfig, active=None):
+    """The LM loop both engines share, for one problem or a batch of them.
 
-    ``cost_fn(state)`` → 0-d cost; ``step_fn(state, lam)`` → the proposed
-    state.  A step is taken when its cost is lower (else the damping goes
-    up); the loop stops after ``config.max_iterations`` or when an accepted
-    step lowers the cost by less than ``config.rtol`` relative — read on
-    the host once an iteration, as the reference's ``while_loop`` tests it.
+    ``cost_fn(state)`` → the cost (0-d, or [*B] for a batch of problems);
+    ``step_fn(state, lam)`` → the proposed state.  A step is taken when its
+    cost is lower (else the damping goes up); a problem stops after
+    ``config.max_iterations`` or when an accepted step lowers its cost by
+    less than ``config.rtol`` relative.  Each problem of a batch runs its own
+    iterations and damping: once it has stopped, its state, damping and
+    cost stay as they are while the others go on, as the reference's
+    ``while_loop`` under ``vmap`` keeps them.  ``active`` [*B] (all by
+    default) marks the problems that may move at all; the others are left
+    untouched.  The loop ends when every problem has stopped, read on the
+    host once an iteration.
     """
     cost0 = cost_fn(state)
     cost = cost0
-    lam = torch.full((), config.damping_init, dtype=torch.float32, device=cost0.device)
+    lam = torch.full_like(cost0, config.damping_init)
+    running = (torch.ones_like(cost0, dtype=torch.bool) if active is None
+               else active.to(device=cost0.device, dtype=torch.bool).clone())
+    its = torch.zeros_like(cost0, dtype=torch.int64)
     it = 0
     while it < config.max_iterations:
         new_state = step_fn(state, lam)
         new_cost = cost_fn(new_state)
-        accept = new_cost < cost
+        accept = running & (new_cost < cost)
         state = _select(accept, new_state, state)
         cost_next = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, lam * config.damping_down,
-                          lam * config.damping_up).clamp(1e-10, 1e6)
+        lam = torch.where(running, torch.where(accept, lam * config.damping_down,
+                                               lam * config.damping_up).clamp(1e-10, 1e6), lam)
         rel = (cost - cost_next).abs() / cost.clamp_min(1e-12)
-        done = accept & (rel < config.rtol)
         cost = cost_next
+        its = its + running.to(torch.int64)
+        running = running & ~(accept & (rel < config.rtol))
         it += 1
-        if bool(done):
+        if not bool(running.any()):
             break
-    return state, LMStats(iterations=torch.tensor(it), initial_cost=cost0,
-                          final_cost=cost, lam=lam)
+    return state, LMStats(iterations=its, initial_cost=cost0, final_cost=cost, lam=lam)
 
 
 def _select(accept: Tensor, new, old):
     """Field-wise ``torch.where(accept, new, old)`` over a state dataclass
-    (poses and X change; the rest is shared)."""
+    (poses and X change; the rest is shared); ``accept`` [*B] picks per
+    leading index."""
+    def sel(a, b):
+        return torch.where(accept.reshape(*accept.shape, *(1,) * (a.dim() - accept.dim())), a, b)
+
     return dataclasses.replace(
-        old,
-        poses=Pose(R=torch.where(accept, new.poses.R, old.poses.R),
-                   t=torch.where(accept, new.poses.t, old.poses.t)),
-        X=torch.where(accept, new.X, old.X))
+        old, poses=Pose(R=sel(new.poses.R, old.poses.R), t=sel(new.poses.t, old.poses.t)),
+        X=sel(new.X, old.X))
 
 
 def bundle_adjust(state: BAState, K: CameraIntrinsics, config: BAConfig = BAConfig(),

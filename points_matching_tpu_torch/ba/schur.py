@@ -123,19 +123,24 @@ def schur_matvec(blocks: NormalEqBlocks, Vinv: Tensor, lam, x: Tensor,
 
 def pcg(mv, precond, g: Tensor, iterations: int) -> Tensor:
     """Fixed-count preconditioned conjugate gradients for S x = g from
-    x = 0, with the reference's 1e-12 floors on both denominators."""
+    x = 0, with the reference's 1e-12 floors on both denominators.  ``g`` is
+    [..., C, 6]: each leading index is its own system, with its own dot
+    products (a sum over all would couple them)."""
+    def dot(a, b):
+        return (a * b).sum((-2, -1), keepdim=True)
+
     x = torch.zeros_like(g)
     r = g - mv(x)
     z = precond(r)
     p = z
-    rz = (r * z).sum()
+    rz = dot(r, z)
     for _ in range(iterations):
         Ap = mv(p)
-        alpha = rz / (p * Ap).sum().clamp_min(1e-12)
+        alpha = rz / dot(p, Ap).clamp_min(1e-12)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = (r * z).sum()
+        rz_new = dot(r, z)
         p = z + rz_new / rz.clamp_min(1e-12) * p
         rz = rz_new
     return x

@@ -25,10 +25,20 @@ the back-substitution; the cost) is completed by one ``all_reduce`` over
 the group.  The CG state is replicated, so its dot products need none.
 ``parallel/sharded_ba.py`` splits the observations.  With ``group=None``
 nothing is reduced and every result is the single process's, bit for bit.
+
+A leading batch axis (the segment axis of ``pipelines/distributed_slam.py``:
+poses [S, C], X [S, L, 3], observations [S, O]) holds S problems solved
+side by side, the port of the reference's ``vmap``: each observation's
+camera and landmark index is offset by s·C and s·L into the flattened
+[S·C] and [S·L] rows, so every scatter-add lands in its own problem's rows
+in its own order, and the LM loop (``ba/lm.lm_loop``) and the CG dot
+products (``ba/schur.pcg``) run per problem.  Each problem gets what it
+gets alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -38,7 +48,7 @@ from points_matching_tpu_torch.ba.residuals import huber_weights, projection_jac
 from points_matching_tpu_torch.ba.schur import _damp, _inv3, _preduce, pcg
 from points_matching_tpu_torch.core.config import BAConfig
 from points_matching_tpu_torch.core.device import pin_fp32
-from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
+from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose, flat_rows
 
 Tensor = torch.Tensor
 SparseLMStats = LMStats
@@ -48,29 +58,29 @@ SparseLMStats = LMStats
 class SparseBAState:
     """BA problem as flat observation lists (padded + masked)."""
 
-    poses: Pose               # [C] world→camera
-    X: Tensor                 # [L, 3]
-    cam_idx: Tensor           # [O] int32 camera per observation
-    lm_idx: Tensor            # [O] int32 landmark per observation
-    uv: Tensor                # [O, 2] measurements
-    obs_mask: Tensor          # [O] validity
-    cam_fixed: Tensor         # [C] bool — gauge-fixed cameras
-    lm_fixed: Tensor          # [L] bool — held-constant landmarks: their
+    poses: Pose               # [*B, C] world→camera
+    X: Tensor                 # [*B, L, 3]
+    cam_idx: Tensor           # [*B, O] int32 camera per observation
+    lm_idx: Tensor            # [*B, O] int32 landmark per observation
+    uv: Tensor                # [*B, O, 2] measurements
+    obs_mask: Tensor          # [*B, O] validity
+    cam_fixed: Tensor         # [*B, C] bool — gauge-fixed cameras
+    lm_fixed: Tensor          # [*B, L] bool — held-constant landmarks: their
                               # observations still constrain cameras (the U
                               # term) but they leave the Schur elimination
                               # (V⁻¹ rows zeroed, so dl is exactly 0)
 
     @property
     def num_cameras(self) -> int:
-        return self.poses.t.shape[0]
+        return self.poses.t.shape[-2]
 
     @property
     def num_landmarks(self) -> int:
-        return self.X.shape[0]
+        return self.X.shape[-2]
 
     @property
     def num_observations(self) -> int:
-        return self.uv.shape[0]
+        return self.uv.shape[-2]
 
 
 def make_sparse_ba_state(poses: Pose, X: Tensor, cam_idx: Tensor, lm_idx: Tensor,
@@ -79,44 +89,51 @@ def make_sparse_ba_state(poses: Pose, X: Tensor, cam_idx: Tensor, lm_idx: Tensor
                          lm_fixed: Optional[Tensor] = None) -> SparseBAState:
     """The first ``num_fixed_cameras`` cameras fixed and no landmark fixed,
     unless ``cam_fixed`` / ``lm_fixed`` masks are given."""
-    C, L = poses.t.shape[0], X.shape[0]
+    lead, C, L = X.shape[:-2], poses.t.shape[-2], X.shape[-2]
     dev = X.device
     if cam_fixed is None:
-        cam_fixed = torch.arange(C, device=dev) < num_fixed_cameras
+        cam_fixed = (torch.arange(C, device=dev) < num_fixed_cameras).expand(*lead, C)
     if lm_fixed is None:
-        lm_fixed = torch.zeros(L, dtype=torch.bool, device=dev)
+        lm_fixed = torch.zeros(*lead, L, dtype=torch.bool, device=dev)
     return SparseBAState(poses=poses, X=X, cam_idx=cam_idx.to(torch.int32),
                          lm_idx=lm_idx.to(torch.int32), uv=uv, obs_mask=obs_mask.bool(),
                          cam_fixed=cam_fixed.bool(), lm_fixed=lm_fixed.bool())
 
 
+def _at(x: Tensor, flat: Tensor) -> Tensor:
+    """Rows ``flat`` ([*B, O], from ``flat_rows``) of x [*B, n, ...] → [*B, O, ...]."""
+    return x.reshape(-1, *x.shape[flat.dim():])[flat]
+
+
 def _gathered(state: SparseBAState):
-    """Clipped per-observation indices and the gathered R, t, X."""
-    c = state.cam_idx.long().clamp(0, state.num_cameras - 1)
-    l_ = state.lm_idx.long().clamp(0, state.num_landmarks - 1)
-    return c, l_, state.poses.R[c], state.poses.t[c], state.X[l_]
+    """Clipped per-observation indices (flattened, ``flat_rows``) and the
+    gathered R, t, X."""
+    C, L = state.num_cameras, state.num_landmarks
+    c = flat_rows(state.cam_idx.long().clamp(0, C - 1), C)
+    l_ = flat_rows(state.lm_idx.long().clamp(0, L - 1), L)
+    return c, l_, _at(state.poses.R, c), _at(state.poses.t, c), _at(state.X, l_)
 
 
 def sparse_residuals(state: SparseBAState, K: CameraIntrinsics) -> Tensor:
-    """Masked per-observation residuals [O, 2] (invalid → 0)."""
+    """Masked per-observation residuals [*B, O, 2] (invalid → 0)."""
     _, _, R, t, Xo = _gathered(state)
-    xc = (R * Xo[:, None, :]).sum(2) + t
-    z = xc[:, 2].clamp_min(1e-6)
-    r = torch.stack([K.fx * xc[:, 0] / z + K.cx - state.uv[:, 0],
-                     K.fy * xc[:, 1] / z + K.cy - state.uv[:, 1]], -1)
-    return torch.where(state.obs_mask[:, None], r, torch.zeros_like(r))
+    xc = (R * Xo[..., None, :]).sum(-1) + t
+    z = xc[..., 2].clamp_min(1e-6)
+    r = torch.stack([K.fx * xc[..., 0] / z + K.cx - state.uv[..., 0],
+                     K.fy * xc[..., 1] / z + K.cy - state.uv[..., 1]], -1)
+    return torch.where(state.obs_mask[..., None], r, torch.zeros_like(r))
 
 
 def sparse_residuals_and_jacobians(state: SparseBAState, K: CameraIntrinsics
                                    ) -> Tuple[Tensor, Tensor, Tensor]:
-    """r [O, 2], Jc [O, 2, 6], Jl [O, 2, 3] in closed form (masked rows
-    zero); see ``ba/residuals.py`` for the forms."""
+    """r [*B, O, 2], Jc [*B, O, 2, 6], Jl [*B, O, 2, 3] in closed form
+    (masked rows zero); see ``ba/residuals.py`` for the forms."""
     _, _, R, t, Xo = _gathered(state)
-    xc = (R * Xo[:, None, :]).sum(2) + t
+    xc = (R * Xo[..., None, :]).sum(-1) + t
     u, v, Jc, Jl = projection_jacobians(xc, R, K)
-    r = torch.stack([K.fx * u + K.cx - state.uv[:, 0],
-                     K.fy * v + K.cy - state.uv[:, 1]], -1)
-    m = state.obs_mask[:, None]
+    r = torch.stack([K.fx * u + K.cx - state.uv[..., 0],
+                     K.fy * v + K.cy - state.uv[..., 1]], -1)
+    m = state.obs_mask[..., None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     return (torch.where(m, r, zero), torch.where(m[..., None], Jc, zero),
             torch.where(m[..., None], Jl, zero))
@@ -124,44 +141,54 @@ def sparse_residuals_and_jacobians(state: SparseBAState, K: CameraIntrinsics
 
 class SparseNormalEq(NamedTuple):
     """Normal-equation blocks in observation-list form; the coupling W stays
-    per observation ([O, 6, 3])."""
+    per observation ([*B, O, 6, 3])."""
 
-    U: Tensor        # [C, 6, 6]
-    V: Tensor        # [L, 3, 3]
-    Wo: Tensor       # [O, 6, 3] per-observation coupling Jcᵀ w Jl
-    bc: Tensor       # [C, 6]
-    bl: Tensor       # [L, 3]
-    cam: Tensor      # [O] clipped camera index (int64)
-    lm: Tensor       # [O] clipped landmark index (int64)
+    U: Tensor        # [*B, C, 6, 6]
+    V: Tensor        # [*B, L, 3, 3]
+    Wo: Tensor       # [*B, O, 6, 3] per-observation coupling Jcᵀ w Jl
+    bc: Tensor       # [*B, C, 6]
+    bl: Tensor       # [*B, L, 3]
+    cam: Tensor      # [*B, O] clipped camera index (int64), flattened (``flat_rows``)
+    lm: Tensor       # [*B, O] clipped landmark index (int64), flattened
 
 
 def _seg_sum(values: Tensor, index: Tensor, n: int) -> Tensor:
-    """Σ of the rows of ``values`` per segment ``index`` → [n, ...]."""
-    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index, values)
+    """Σ of the rows of ``values`` [*B, O, ...] per flattened index
+    [*B, O] (``flat_rows``) → [*B, n, ...]: each leading index's sums in its own
+    rows, added in its own order."""
+    lead, rest = index.shape[:-1], values.shape[index.dim():]
+    out = torch.zeros((math.prod(lead) * n, *rest), dtype=values.dtype, device=values.device)
+    out.index_add_(0, index.reshape(-1), values.reshape(-1, *rest))
+    return out.reshape(*lead, n, *rest)
 
 
 def _outer2(A: Tensor, B: Tensor) -> Tensor:
-    """Σ_k A[:, k, :, None] · B[:, k, None, :] over the residual axis k = 2
-    (broadcast products, not a batched GEMM)."""
-    return A[:, 0, :, None] * B[:, 0, None, :] + A[:, 1, :, None] * B[:, 1, None, :]
+    """Σ_k A[..., k, :, None] · B[..., k, None, :] over the residual axis
+    k = 2 (broadcast products, not a batched GEMM)."""
+    return (A[..., 0, :, None] * B[..., 0, None, :]
+            + A[..., 1, :, None] * B[..., 1, None, :])
+
+
+def _lam(lam):
+    """The damping, [*B] → [*B, 1, 1, 1] against [*B, n, k, k] blocks."""
+    return lam.reshape(*lam.shape, 1, 1, 1) if isinstance(lam, torch.Tensor) else lam
 
 
 def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
                                   Jl: Tensor, weights: Tensor, group=None) -> SparseNormalEq:
-    """Scatter-add assembly of the GN blocks; weights [O] (robust × valid).
-    With ``group``, U/V/bc/bl are reduced over it; Wo/cam/lm stay local."""
+    """Scatter-add assembly of the GN blocks; weights [*B, O] (robust ×
+    valid).  With ``group``, U/V/bc/bl are reduced over it; Wo/cam/lm stay
+    local."""
     C, L = state.num_cameras, state.num_landmarks
-    cam = state.cam_idx.long().clamp(0, C - 1)
-    lm = state.lm_idx.long().clamp(0, L - 1)
-    w = weights[:, None, None]
+    cam, lm, *_ = _gathered(state)
+    w = weights[..., None, None]
     Jcw = Jc * w
     Uo = _outer2(Jcw, Jc)
     Vo = _outer2(Jl * w, Jl)
     Wo = _outer2(Jcw, Jl)
-    wr = r * weights[:, None]
-    bco = -(Jc[:, 0] * wr[:, 0:1] + Jc[:, 1] * wr[:, 1:2])
-    blo = -(Jl[:, 0] * wr[:, 0:1] + Jl[:, 1] * wr[:, 1:2])
+    wr = r * weights[..., None]
+    bco = -(Jc[..., 0, :] * wr[..., 0:1] + Jc[..., 1, :] * wr[..., 1:2])
+    blo = -(Jl[..., 0, :] * wr[..., 0:1] + Jl[..., 1, :] * wr[..., 1:2])
     return SparseNormalEq(U=_preduce(_seg_sum(Uo, cam, C), group),
                           V=_preduce(_seg_sum(Vo, lm, L), group), Wo=Wo,
                           bc=_preduce(_seg_sum(bco, cam, C), group),
@@ -170,12 +197,12 @@ def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
 
 def sparse_schur_matvec(eq: SparseNormalEq, Vinv: Tensor, lam, x: Tensor,
                         group=None) -> Tensor:
-    """Implicit S @ x = (U − W V⁻¹ Wᵀ) x via two scatter-adds.  [C, 6]."""
-    C, L = eq.U.shape[0], eq.V.shape[0]
-    Ux = (_damp(eq.U, lam) * x[:, None, :]).sum(-1)
-    t = _preduce(_seg_sum((eq.Wo * x[eq.cam][:, :, None]).sum(1), eq.lm, L), group)
-    u = (Vinv * t[:, None, :]).sum(2)
-    y = _preduce(_seg_sum((eq.Wo * u[eq.lm][:, None, :]).sum(2), eq.cam, C), group)
+    """Implicit S @ x = (U − W V⁻¹ Wᵀ) x via two scatter-adds.  [*B, C, 6]."""
+    C, L = eq.U.shape[-3], eq.V.shape[-3]
+    Ux = (_damp(eq.U, _lam(lam)) * x[..., None, :]).sum(-1)
+    t = _preduce(_seg_sum((eq.Wo * _at(x, eq.cam)[..., :, None]).sum(-2), eq.lm, L), group)
+    u = (Vinv * t[..., None, :]).sum(-1)
+    y = _preduce(_seg_sum((eq.Wo * _at(u, eq.lm)[..., None, :]).sum(-1), eq.cam, C), group)
     return Ux - y
 
 
@@ -183,16 +210,17 @@ def _sparse_schur_prep(eq: SparseNormalEq, lam, lm_fixed: Optional[Tensor] = Non
                        group=None):
     """Damped V⁻¹ (zero on ``lm_fixed`` rows), the reduced gradient g, and
     the Jacobi preconditioner (inverse 6×6 diagonal blocks of S)."""
-    C = eq.U.shape[0]
-    Vinv = _inv3(_damp(eq.V, lam))
+    C = eq.U.shape[-3]
+    Vinv = _inv3(_damp(eq.V, _lam(lam)))
     if lm_fixed is not None:
-        Vinv = torch.where(lm_fixed[:, None, None], torch.zeros_like(Vinv), Vinv)
-    Vb = (Vinv * eq.bl[:, None, :]).sum(2)
-    g = eq.bc - _preduce(_seg_sum((eq.Wo * Vb[eq.lm][:, None, :]).sum(2), eq.cam, C), group)
-    Vv = Vinv[eq.lm]                                                    # [O, 3, 3]
-    WV = (eq.Wo[:, :, :, None] * Vv[:, None, :, :]).sum(2)             # [O, 6, 3]
-    WVWo = (WV[:, :, None, :] * eq.Wo[:, None, :, :]).sum(3)           # [O, 6, 6]
-    S_diag = _damp(eq.U, lam) - _preduce(_seg_sum(WVWo, eq.cam, C), group)
+        Vinv = torch.where(lm_fixed[..., None, None], torch.zeros_like(Vinv), Vinv)
+    Vb = (Vinv * eq.bl[..., None, :]).sum(-1)
+    g = eq.bc - _preduce(_seg_sum((eq.Wo * _at(Vb, eq.lm)[..., None, :]).sum(-1), eq.cam, C),
+                         group)
+    Vv = _at(Vinv, eq.lm)                                                  # [*B, O, 3, 3]
+    WV = (eq.Wo[..., :, :, None] * Vv[..., None, :, :]).sum(-2)           # [*B, O, 6, 3]
+    WVWo = (WV[..., :, None, :] * eq.Wo[..., None, :, :]).sum(-1)         # [*B, O, 6, 6]
+    S_diag = _damp(eq.U, _lam(lam)) - _preduce(_seg_sum(WVWo, eq.cam, C), group)
     return Vinv, g, torch.linalg.inv_ex(S_diag)[0]
 
 
@@ -200,32 +228,36 @@ def solve_sparse_schur_pcg(eq: SparseNormalEq, lam, iterations: int = 50,
                            lm_fixed: Optional[Tensor] = None,
                            group=None) -> Tuple[Tensor, Tensor]:
     """Jacobi-preconditioned CG on the implicit reduced camera system +
-    landmark back-substitution → (dc [C, 6], dl [L, 3]; ``lm_fixed`` rows
-    of dl exactly 0)."""
-    L = eq.V.shape[0]
+    landmark back-substitution → (dc [*B, C, 6], dl [*B, L, 3]; ``lm_fixed``
+    rows of dl exactly 0)."""
+    L = eq.V.shape[-3]
     Vinv, g, Minv = _sparse_schur_prep(eq, lam, lm_fixed, group)
     dc = pcg(lambda x: sparse_schur_matvec(eq, Vinv, lam, x, group),
-             lambda r: (Minv * r[:, None, :]).sum(-1), g, iterations)
-    rhs = eq.bl - _preduce(_seg_sum((eq.Wo * dc[eq.cam][:, :, None]).sum(1), eq.lm, L),
+             lambda r: (Minv * r[..., None, :]).sum(-1), g, iterations)
+    rhs = eq.bl - _preduce(_seg_sum((eq.Wo * _at(dc, eq.cam)[..., :, None]).sum(-2), eq.lm, L),
                            group)
-    return dc, (Vinv * rhs[:, None, :]).sum(2)
+    return dc, (Vinv * rhs[..., None, :]).sum(-1)
 
 
 def sparse_ba_cost(state: SparseBAState, K: CameraIntrinsics,
                    huber_delta: float = 0.0, group=None) -> Tensor:
-    return _preduce(robust_cost(sparse_residuals(state, K), state.obs_mask, huber_delta),
-                    group)
+    """The robust cost, one per leading index ([*B])."""
+    return _preduce(robust_cost(sparse_residuals(state, K), state.obs_mask, huber_delta,
+                                dims=-1), group)
 
 
 def bundle_adjust_sparse(state: SparseBAState, K: CameraIntrinsics,
-                         config: BAConfig = BAConfig(), group=None
+                         config: BAConfig = BAConfig(), group=None,
+                         active: Optional[Tensor] = None
                          ) -> Tuple[SparseBAState, SparseLMStats]:
     """LM on observation lists — the contract of ``ba.lm.bundle_adjust``
     (monotone cost, same stopping rule) at O(observations) memory.  The
     solver is always the implicit-Schur PCG (``config.pcg_iterations``).
     With ``group``, ``state``'s observations are this rank's shard and the
     sums are completed over the group (module docstring); every rank then
-    holds the same poses, landmarks and stats."""
+    holds the same poses, landmarks and stats.  A state with a leading batch
+    axis is that many problems, each with its own LM loop (stats [*B]);
+    ``active`` [*B] leaves the problems it marks False untouched."""
     pin_fp32()
 
     def step(st: SparseBAState, lam: Tensor) -> SparseBAState:
@@ -238,4 +270,4 @@ def bundle_adjust_sparse(state: SparseBAState, K: CameraIntrinsics,
                                    X=st.X + dl)
 
     return lm_loop(state, lambda st: sparse_ba_cost(st, K, config.huber_delta, group),
-                   step, config)
+                   step, config, active)

@@ -9,6 +9,7 @@ of the same shapes.  The containers are plain ``@dataclass``es of tensors.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -25,6 +26,23 @@ def take(x: Tensor, i: Tensor) -> Tensor:
     d = i.dim()
     idx = i.long().reshape(*i.shape, *(1,) * (x.dim() - d))
     return x.gather(d, idx.expand(*i.shape, 1, *x.shape[d + 1:])).squeeze(d)
+
+
+def take_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """Rows ``idx`` [*B, m] of ``x`` [*B, n, ...] → [*B, m, ...]: a gather
+    per leading index (``x[idx]`` without one)."""
+    return torch.take_along_dim(x, idx.reshape(*idx.shape, *(1,) * (x.dim() - idx.dim())),
+                                dim=idx.dim() - 1)
+
+
+def flat_rows(index: Tensor, n: int) -> Tensor:
+    """Indices [*B, m] into the rows of [*B, n, ...] → indices into the
+    flattened [prod(B)·n, ...] rows (b·n added for leading index b), so
+    that one scatter or gather serves every leading index in its own rows."""
+    lead = index.shape[:-1]
+    if not lead:
+        return index
+    return index + torch.arange(math.prod(lead), device=index.device).reshape(*lead, 1) * n
 
 
 @dataclasses.dataclass

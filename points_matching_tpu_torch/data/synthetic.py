@@ -220,7 +220,8 @@ def make_tracked_sequence(num_frames: int, *, device, num_landmarks: int = 300,
 
 def make_stacked_sequence(num_frames: int = 16, *, device, num_landmarks: int = 400,
                           n_feat: int = 256, seed: int = 0, px_noise: float = 0.3,
-                          desc_dim: int = 32, corridor: bool = False):
+                          desc_dim: int = 32, corridor: bool = False,
+                          on_axis: bool = False):
     """BASELINE config 4's stand-in, tests/test_distributed_slam.py's
     ``_make_stacked_sequence`` in numpy with the same draws: landmarks spread
     along a forward corridor (``corridor``; else a 10 × 6 × 8 box), the
@@ -228,6 +229,12 @@ def make_stacked_sequence(num_frames: int = 16, *, device, num_landmarks: int = 
     visible landmarks a frame with ``px_noise`` pixels of noise and noisy
     unit descriptors.  Config 4's stand-in is ``num_frames=272,
     num_landmarks=3000, seed=5, corridor=True``.
+
+    The reference's camera frame moves by t = (−0.3 i, 0, 0), so its centre
+    −Rᵀt swings off the corridor's axis by 0.3 i·sin(yaw): past ~500 frames
+    the camera leaves the landmarks' depth band (6–14) and frames see none.
+    ``on_axis`` keeps the centre at (0.3 i, 0, 0) (t = −R·centre), the same
+    draws otherwise: KITTI 00's length (4,541 frames) needs it.
 
     Returns (kps [F, N, 2], desc [F, N, D], mask [F, N]) on ``device``, K
     (CameraIntrinsics on ``device``) and the ground-truth centres [F, 3] as
@@ -253,9 +260,12 @@ def make_stacked_sequence(num_frames: int = 16, *, device, num_landmarks: int = 
         ang = 0.05 * np.sin(0.05 * i) if corridor else 0.015 * i
         R = so3_exp(torch.tensor([0.0, ang, 0.0], dtype=torch.float32)).numpy()
         t = np.asarray([-0.3 * i, 0.0, 0.0], np.float32)
+        if on_axis:
+            t = (R @ t).astype(np.float32)
         centers.append(-(R.T @ t))
         Xc = X @ R.T + t
-        uv = Xc[:, :2] / Xc[:, 2:3] * np.asarray([fx, fy]) + np.asarray([w / 2, h / 2])
+        with np.errstate(divide="ignore", invalid="ignore"):     # z = 0: not visible
+            uv = Xc[:, :2] / Xc[:, 2:3] * np.asarray([fx, fy]) + np.asarray([w / 2, h / 2])
         vis = (Xc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & \
               (uv[:, 1] >= 0) & (uv[:, 1] < h)
         idx = np.nonzero(vis)[0]

@@ -18,12 +18,12 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from points_matching_tpu_torch.core.types import Pose, take
+from points_matching_tpu_torch.core.types import Pose, take_rows
 from points_matching_tpu_torch.geometry.eigen import (
     nearest_rotation_so3,
     smallest_eigvec_psd,
 )
-from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
+from points_matching_tpu_torch.geometry.ransac import Generators, sample_minimal_points
 from points_matching_tpu_torch.geometry.se3 import se3_exp
 
 Tensor = torch.Tensor
@@ -101,8 +101,12 @@ def _refine_step(pose: Pose, X: Tensor, uv_norm: Tensor, weights: Tensor,
     rf = r.flatten(-2)                                             # [..., 2N]
     eye = torch.eye(6, dtype=X.dtype, device=X.device)
     H = J.transpose(-1, -2) @ J + damping * eye
-    g = -(J.transpose(-1, -2) @ rf[..., None])
-    dx = torch.linalg.solve_ex(H, g)[0][..., 0]
+    # Jᵀr as a product and a sum over the rows, accumulated in float64: a
+    # batched matrix-vector product of one batch takes another CPU kernel
+    # than of several, which rounds otherwise, and an f32 running sum over
+    # 2N rows loses what a blocked product keeps
+    g = -(J.double() * rf.double()[..., None]).sum(-2).to(J.dtype)
+    dx = torch.linalg.solve_ex(H, g[..., None])[0][..., 0]
     Rd, td = se3_exp(dx)
     return Pose(R=Rd @ pose.R, t=(Rd @ pose.t[..., None])[..., 0] + td)
 
@@ -111,7 +115,8 @@ def pnp_refine(pose: Pose, X: Tensor, uv_norm: Tensor, weights: Tensor,
                iterations: int = 5, damping: float = 1e-6) -> Pose:
     """Fixed-count Gauss-Newton refinement of a PnP pose (normalized
     coordinates; minimizes the weighted reprojection error).  Batched over
-    the pose's and the weights' leading dims; X/uv_norm [N, ·] shared."""
+    the pose's and the weights' leading dims; X/uv_norm [..., N, ·]
+    broadcast against them."""
     for _ in range(iterations):
         pose = _refine_step(pose, X, uv_norm, weights, damping)
     return pose
@@ -132,14 +137,14 @@ def _reproj_err(pose: Pose, X: Tensor, uv_norm: Tensor) -> Tensor:
 
 
 def top_k_first(counts: Tensor, k: int) -> Tensor:
-    """Indices of the k largest counts, the lower index first among equal
-    counts (``jax.lax.top_k``'s order; ``torch.topk`` on CUDA promises no
-    order for ties): a stable descending sort."""
-    return torch.sort(counts, descending=True, stable=True).indices[:k]
+    """Indices of the k largest counts along the last axis, the lower index
+    first among equal counts (``jax.lax.top_k``'s order; ``torch.topk`` on
+    CUDA promises no order for ties): a stable descending sort."""
+    return torch.sort(counts, descending=True, stable=True).indices[..., :k]
 
 
 def ransac_pnp(
-    generator: Optional[torch.Generator],
+    generator: Optional[Generators],
     X: Tensor,
     uv_norm: Tensor,
     mask: Tensor,
@@ -152,21 +157,25 @@ def ransac_pnp(
     prior_pose: Optional[Pose] = None,
     samples: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> PnPResult:
-    """Batched-hypothesis RANSAC PnP with top-k LO refinement.
+    """Batched-hypothesis RANSAC PnP with top-k LO refinement, for one
+    problem or a leading segment axis (each segment on its own: its draws,
+    its top k, its winner).
 
     Args:
-      generator: random source for the minimal sets (unused with ``samples``).
-      X: [N, 3] world points; uv_norm: [N, 2] normalized image coords.
-      mask: [N] valid correspondences.
+      generator: random source for the minimal sets (unused with
+        ``samples``): one generator, or one per segment.
+      X: [*B, N, 3] world points; uv_norm: [*B, N, 2] normalized image coords.
+      mask: [*B, N] valid correspondences.
       inlier_threshold: reprojection error in normalized units.
-      sample_logits: [N] optional log-weights of the minimal-set draw
+      sample_logits: [*B, N] optional log-weights of the minimal-set draw
         (P ∝ exp(logits) within each stratified bucket).
       refine_top_k: the k best hypotheses by count (lower index first on
         ties) are each GN-refined on their own consensus and re-gated; the
         best refined consensus wins (the first on ties).
-      prior_pose: optional extra hypothesis appended after the samples
+      prior_pose: optional extra hypothesis [*B] appended after the samples
         (the previous frame's pose in incremental tracking).
-      samples: optional injected minimal sets (sX [H, S, 3], suv [H, S, 2]).
+      samples: optional injected minimal sets (sX [*B, H, S, 3], suv
+        [*B, H, S, 2]).
     """
     mask = mask.bool()
     if samples is None:
@@ -175,24 +184,30 @@ def ransac_pnp(
     else:
         sX, suv = (s.to(device=X.device, dtype=X.dtype) for s in samples)
 
-    poses = pnp_dlt(sX, suv)
+    poses = pnp_dlt(sX, suv)                                       # [*B, H]
     if prior_pose is not None:
-        poses = Pose(R=torch.cat([poses.R, prior_pose.R[None]]),
-                     t=torch.cat([poses.t, prior_pose.t[None]]))
+        poses = Pose(R=torch.cat([poses.R, prior_pose.R[..., None, :, :]], -3),
+                     t=torch.cat([poses.t, prior_pose.t[..., None, :]], -2))
 
-    inl = (_reproj_err(poses, X, uv_norm) < inlier_threshold) & mask
+    # the hypothesis axis, for the correspondences shared by a segment's
+    # hypotheses
+    Xh, uvh, mh = X[..., None, :, :], uv_norm[..., None, :, :], mask[..., None, :]
+    inl = (_reproj_err(poses, Xh, uvh) < inlier_threshold) & mh    # [*B, H, N]
     counts = inl.sum(-1)
 
-    top = top_k_first(counts, min(refine_top_k, counts.shape[0]))
-    cand = Pose(R=poses.R[top], t=poses.t[top])
-    refined = pnp_refine(cand, X, uv_norm, inl[top].to(X.dtype),
+    top = top_k_first(counts, min(refine_top_k, counts.shape[-1]))
+    cand = Pose(R=take_rows(poses.R, top), t=take_rows(poses.t, top))
+    refined = pnp_refine(cand, Xh, uvh, take_rows(inl, top).to(X.dtype),
                          iterations=refine_iterations)
-    r_inl = (_reproj_err(refined, X, uv_norm) < inlier_threshold) & mask
-    best = r_inl.sum(-1).argmax()
-    pose = Pose(R=take(refined.R, best), t=take(refined.t, best))
-
-    pose = pnp_refine(pose, X, uv_norm, take(r_inl, best).to(X.dtype),
+    r_inl = (_reproj_err(refined, Xh, uvh) < inlier_threshold) & mh
+    best = r_inl.sum(-1).argmax(-1, keepdim=True)                  # first on ties
+    # the winner keeps a hypothesis axis of one, so that one problem's 3×3
+    # products are batched as a segment axis's are (a 2-D product takes
+    # another CPU kernel, which rounds otherwise)
+    win = Pose(R=take_rows(refined.R, best), t=take_rows(refined.t, best))
+    pose = pnp_refine(win, Xh, uvh, take_rows(r_inl, best).to(X.dtype),
                       iterations=refine_iterations)
+    pose = Pose(R=pose.R[..., 0, :, :], t=pose.t[..., 0, :])
     final_inl = (_reproj_err(pose, X, uv_norm) < inlier_threshold) & mask
     return PnPResult(pose=pose, inlier_mask=final_inl,
-                     num_inliers=final_inl.sum(dtype=torch.int32))
+                     num_inliers=final_inl.sum(-1, dtype=torch.int32))

@@ -18,7 +18,7 @@ both packages the same samples.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,10 +34,11 @@ from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import minimal_eigh
 from points_matching_tpu_torch.ops.kernels.ransac_kernel import ransac_score_hypotheses
 
 Tensor = torch.Tensor
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
 
 
 def _stratified_positions(
-    generator: torch.Generator,
+    generator: Generators,
     mask: Tensor,
     num_hypotheses: int,
     sample_size: int,
@@ -56,7 +57,10 @@ def _stratified_positions(
 
     The random numbers are drawn pair by pair (a permutation, then the
     [S, H] uniforms), so a batch of P pairs draws exactly what P one-pair
-    calls draw in turn; all the rest runs once for the batch.
+    calls draw in turn; all the rest runs once for the batch.  ``generator``
+    is one generator, or a sequence of one per index of the first leading
+    axis (a segment axis): entry s then draws its rows, in row-major order,
+    from generator s, as a call on entry s alone draws them.
 
     Returns (j [..., H, S] position within each bucket, slot_idx
     [..., S·bucket] original index per slot, bucket size).
@@ -65,10 +69,17 @@ def _stratified_positions(
     S = sample_size
     bucket = -(-n // S)
     dev = mask.device
+    rows = math.prod(lead)
+    if isinstance(generator, torch.Generator) or generator is None:
+        gens = [generator] * rows
+    else:
+        if not lead or len(generator) != lead[0]:
+            raise ValueError(f"{len(generator)} generators for leading axes {tuple(lead)}")
+        gens = [g for g in generator for _ in range(rows // lead[0])]
     perms, us = [], []
-    for _ in range(math.prod(lead)):
-        perms.append(torch.randperm(bucket * S, generator=generator, device=dev))
-        us.append(torch.rand((S, num_hypotheses), generator=generator, device=dev))
+    for g in gens:
+        perms.append(torch.randperm(bucket * S, generator=g, device=dev))
+        us.append(torch.rand((S, num_hypotheses), generator=g, device=dev))
     perm = torch.stack(perms).reshape(*lead, bucket * S)
     slot_idx = perm.clamp_max(n - 1)
     slot_valid = (perm < n) & mask.gather(-1, slot_idx)
@@ -92,7 +103,7 @@ def _stratified_positions(
     return j, slot_idx, bucket
 
 
-def sample_index_sets(generator: torch.Generator, mask: Tensor, num_hypotheses: int,
+def sample_index_sets(generator: Generators, mask: Tensor, num_hypotheses: int,
                       sample_size: int, logits: Optional[Tensor] = None) -> Tensor:
     """[..., H, S] index sets (one [H, S] per mask row of [..., N]), no
     repeats within a set, P ∝ exp(logits) within each stratified bucket
@@ -104,7 +115,7 @@ def sample_index_sets(generator: torch.Generator, mask: Tensor, num_hypotheses: 
     return slot_idx.gather(-1, pos).reshape(j.shape)
 
 
-def sample_minimal_points(generator: torch.Generator, mask: Tensor, num_hypotheses: int,
+def sample_minimal_points(generator: Generators, mask: Tensor, num_hypotheses: int,
                           sample_size: int, tables: Tuple[Tensor, ...],
                           logits: Optional[Tensor] = None) -> Tuple[Tensor, ...]:
     """Stratified minimal-set sampling returning the sampled ROWS of each
@@ -116,7 +127,7 @@ def sample_minimal_points(generator: torch.Generator, mask: Tensor, num_hypothes
 
 
 def ransac_fundamental(
-    generator: Optional[torch.Generator],
+    generator: Optional[Generators],
     p1: Tensor,
     p2: Tensor,
     mask: Tensor,
@@ -127,7 +138,8 @@ def ransac_fundamental(
     pair or a batch of pairs.
 
     Args:
-      generator: random source for the minimal sets (on p1's device).
+      generator: random source for the minimal sets (on p1's device): one
+        generator, or one per index of the first leading axis.
       p1, p2: [..., N, 2] matched pixel coordinates (padded rows allowed);
         leading axes are pairs, each estimated on its own.
       mask:   [..., N] validity of each correspondence.

@@ -5,12 +5,15 @@ hosts") — port of ``points_matching_tpu/pipelines/distributed_slam.py``.
 1. **Split** the sequence into S overlapping segments (``segment_frames``).
 2. **Build submaps in parallel** (``build_submaps``): the segments are
    divided over the mesh's ``data`` ranks in contiguous blocks; each rank
-   builds its segments in turn with the port's incremental SfM (bootstrap →
-   PnP registration with a windowed BA every ``ba_every`` frames → a
-   full-window BA), and the submaps are all-gathered.  The reference vmaps
-   one ``lax.scan`` over the segments; here a segment is the SfM host loop.
+   builds its segments as one batch with the port's incremental SfM over a
+   leading segment axis (one bootstrap → one ``register_frame`` a frame step
+   with a windowed BA every ``ba_every`` frames for the segments that
+   registered → a full-window BA), and the submaps are all-gathered.  The
+   reference vmaps one ``lax.scan`` over the segments; here the frame steps
+   are a host loop and each kernel launches once a step for all segments.
    Segment s draws from its own ``torch.Generator``, seeded from (seed, s),
-   so the world size changes no submap.
+   and computes what it computes alone, so the world size changes no
+   submap.
 3. **Align** consecutive submaps on the host with a Sim(3) from the overlap
    frames they share, and merge them into one global problem
    (``merge_submaps``; numpy, copied from the reference).
@@ -35,6 +38,7 @@ from points_matching_tpu_torch.ba.sparse import bundle_adjust_sparse, make_spars
 from points_matching_tpu_torch.core.config import SfMConfig
 from points_matching_tpu_torch.core.device import pin_fp32
 from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
+from points_matching_tpu_torch.geometry.ransac import Generators
 from points_matching_tpu_torch.parallel.comm import pack, unpack
 from points_matching_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -49,7 +53,7 @@ from points_matching_tpu_torch.pipelines.sfm import (
     camera_centers,
     init_sfm_state,
     local_bundle_adjust,
-    register_frame,
+    register_frames_chunk,
 )
 
 Tensor = torch.Tensor
@@ -60,56 +64,45 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 def build_submap(
-    kps_xy: Tensor,     # [T, N, 2]
-    desc: Tensor,       # [T, N, D]
-    fmask: Tensor,      # [T, N]
+    kps_xy: Tensor,     # [*B, T, N, 2]
+    desc: Tensor,       # [*B, T, N, D]
+    fmask: Tensor,      # [*B, T, N]
     K: CameraIntrinsics,
-    generator: Optional[torch.Generator],
+    generator: Optional[Generators],
     config: SfMConfig,
     ba_every: int = 4,
     f_samples: Optional[Tensor] = None,
     pnp_samples: Optional[Callable[[int, SfMState], Tensor]] = None,
 ) -> Tuple[SfMState, Tensor]:
-    """One segment → one submap: bootstrap on frames 0-1, registration of
-    the rest with a windowed BA after each registered frame i with
-    ``i % ba_every == 0``, then a BA over the whole segment.  Returns
-    (state, registered [T] bool).
+    """One segment → one submap, or a batch of segments ([S, T, ...]
+    inputs, S generators) → S submaps: bootstrap on frames 0-1,
+    registration of the rest with a windowed BA after frame i with
+    ``i % ba_every == 0`` for each segment that registered it, then a BA
+    over the whole segment.  Returns (state, registered [*B, T] bool).
 
-    ``f_samples`` injects the bootstrap's minimal sets and
-    ``pnp_samples(i, state)`` frame i's PnP sets (the reference's draws in
-    the parity tests); then ``generator`` is not used for them."""
-    T, N, D = desc.shape
-    state = init_sfm_state(config, N, D, device=desc.device)
-    state, st0 = bootstrap_two_view(state, kps_xy[0], desc[0], fmask[0], kps_xy[1],
-                                    desc[1], fmask[1], K, generator, config,
+    ``f_samples`` [*B, candidates, H, 8] injects the bootstrap's minimal
+    sets and ``pnp_samples(i, state)`` frame i's PnP sets ([*B, H, 6]; the
+    reference's draws in the parity tests); then ``generator`` is not used
+    for them."""
+    T, N, D = desc.shape[-3:]
+    state = init_sfm_state(config, N, D, device=desc.device, batch=desc.shape[:-3])
+
+    def frame(i):
+        return kps_xy[..., i, :, :], desc[..., i, :, :], fmask[..., i, :]
+
+    state, st0 = bootstrap_two_view(state, *frame(0), *frame(1), K, generator, config,
                                     f_samples=f_samples)
-    regs = [st0.registered, st0.registered]
-    for i in range(2, T):
-        ps = None if pnp_samples is None else pnp_samples(i, state)
-        state, st = register_frame(state, kps_xy[i], desc[i], fmask[i], K, generator,
-                                   config, pnp_samples=ps)
-        if i % ba_every == 0 and bool(st.registered):     # one host read
-            state, _ = local_bundle_adjust(state, K, config, window=config.local_ba_window)
-        regs.append(st.registered)
+    state, sts = register_frames_chunk(state, [frame(i) for i in range(2, T)], range(2, T),
+                                       K, generator, config, ba_every,
+                                       config.local_ba_window, pnp_samples=pnp_samples)
     state, _ = local_bundle_adjust(state, K, config, window=T)
-    return state, torch.stack(regs)
+    return state, torch.cat([torch.stack([st0.registered] * 2, -1), sts.registered], -1)
 
 
 def segment_seed(seed: int, segment: int) -> int:
     """The generator seed of segment ``segment`` of a run seeded ``seed``."""
     return int(np.random.SeedSequence([seed, segment]).generate_state(1, np.uint64)[0]
                >> np.uint64(1))
-
-
-def _stack_states(states) -> SfMState:
-    """Field-wise stack of per-segment states ([S, ...] leaves)."""
-    fields = {}
-    for f in dataclasses.fields(SfMState):
-        vals = [getattr(s, f.name) for s in states]
-        fields[f.name] = (Pose(R=torch.stack([v.R for v in vals]),
-                               t=torch.stack([v.t for v in vals]))
-                          if f.name == "poses" else torch.stack(vals))
-    return SfMState(**fields)
 
 
 def _leaves(st: SfMState):
@@ -133,23 +126,19 @@ def build_submaps(kps_xy: Tensor, desc: Tensor, fmask: Tensor, K: CameraIntrinsi
                   ) -> Tuple[SfMState, Tensor]:
     """All S submaps ([S, T, ...] segment inputs) → (states stacked [S, ...],
     registered [S, T]).  With a mesh, data rank r builds segments
-    [r·S/n, (r+1)·S/n) (S must divide the axis) and the states are
-    all-gathered over ``data``, in one packed buffer."""
+    [r·S/n, (r+1)·S/n) (S must divide the axis) as one batch and the states
+    are all-gathered over ``data``, in one packed buffer."""
     S = kps_xy.shape[0]
     comm = axis_comm(mesh, DATA_AXIS)
     n = comm.size()
     if S % n:
         raise ValueError(f"num segments ({S}) must divide the data axis ({n})")
     b = S // n
-    dev = desc.device
-    states, regs = [], []
-    for s in range(comm.index() * b, (comm.index() + 1) * b):
-        gen = torch.Generator(device=dev).manual_seed(segment_seed(seed, s))
-        st, rg = build_submap(kps_xy[s], desc[s], fmask[s], K, gen, config, ba_every)
-        states.append(st)
-        regs.append(rg)
-    local = _stack_states(states)
-    regs = torch.stack(regs)
+    mine = slice(comm.index() * b, (comm.index() + 1) * b)
+    gens = [torch.Generator(device=desc.device).manual_seed(segment_seed(seed, s))
+            for s in range(S)[mine]]
+    local, regs = build_submap(kps_xy[mine], desc[mine], fmask[mine], K, gens, config,
+                               ba_every)
     if not has_axis(mesh, DATA_AXIS):
         return local, regs
     leaves = _leaves(local) + [regs]

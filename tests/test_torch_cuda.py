@@ -893,3 +893,57 @@ def test_pair_axis_launches_each_kernel_once(dev):
     est, d = delta(lambda: ransac_fundamental(gen_r, p1, q2, m.mask, RansacConfig()))
     assert d == {"minimal_eight_point": 1, "ransac_score_hypotheses": 1}
     assert est.F.shape == (P, 3, 3) and bool(torch.isfinite(est.F).all())
+
+
+@pytest.fixture
+def segments16(dev):
+    """Config 4's stand-in cut to its first 16 segments of 10 frames
+    (overlap 4), 256 features of 32-d, on the card, and the reference
+    test's small config."""
+    from points_matching_tpu_torch.core.config import (
+        BAConfig, MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig)
+    from points_matching_tpu_torch.data.synthetic import make_stacked_sequence
+    from points_matching_tpu_torch.pipelines.distributed_slam import segment_frames
+
+    kps, desc, mask, K, _ = make_stacked_sequence(num_frames=100, num_landmarks=1200, seed=5,
+                                                  corridor=True, device=dev)
+    sk, sd, sm, _ = segment_frames(kps, desc, mask, 10, 4)
+    cfg = SfMConfig(
+        two_view=TwoViewConfig(matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.8),
+                               ransac=RansacConfig(num_hypotheses=128, inlier_threshold=2.0)),
+        ba=BAConfig(max_iterations=6), max_cameras=10, max_landmarks=1024,
+        max_observations=4096, local_ba_window=10)
+    return sk[:16], sd[:16], sm[:16], K, cfg
+
+
+def test_segment_batch_launches_each_kernel_once_a_step(segments16):
+    """16 segments built as one batch: K1 once for the bootstrap's match and
+    three times a frame step (the frame against its previous frame, against
+    its bank and the bank's cross-check, B = 16 each), K3 and K2 once for
+    all 16 · 4 bootstrap candidates."""
+    from points_matching_tpu_torch.ops import kernels
+    from points_matching_tpu_torch.pipelines.distributed_slam import build_submaps
+
+    sk, sd, sm, K, cfg = segments16
+    kernels.reset_launch_counts()
+    states, regs = build_submaps(sk, sd, sm, K, 0, cfg)
+    counts = kernels.launch_counts()
+    assert counts["fused_l2_top2"] == 1 + 3 * (sk.shape[1] - 2)
+    assert counts["minimal_eight_point"] == counts["ransac_score_hypotheses"] == 1
+    assert regs.shape == (16, 10) and bool(regs.all())
+    assert states.X.is_cuda and bool(torch.isfinite(states.poses.t).all())
+
+
+def test_segment_batch_registers_what_each_segment_registers_alone(segments16):
+    """The batch against each segment built alone with its own generator
+    on the card: the same frames registered, the same number of cameras."""
+    from points_matching_tpu_torch.pipelines.distributed_slam import (
+        build_submap, build_submaps, segment_seed)
+
+    sk, sd, sm, K, cfg = segments16
+    states, regs = build_submaps(sk, sd, sm, K, 0, cfg)
+    for s in range(sk.shape[0]):
+        gen = torch.Generator(device=sk.device).manual_seed(segment_seed(0, s))
+        one, reg = build_submap(sk[s], sd[s], sm[s], K, gen, cfg)
+        assert torch.equal(reg, regs[s]), s
+        assert int(one.num_cams) == int(states.num_cams[s]), s

@@ -1,9 +1,11 @@
 """The port's distributed SLAM (``pipelines/distributed_slam.py``, BASELINE
 config 4) against the JAX package on the CPU: the host steps (segments,
-Sim(3), the merge) on the same inputs, one submap with the reference's
-RANSAC draws injected, and the whole pipeline on tests/test_distributed_slam.py's
-16-frame sequence at world sizes 1 (this process), 2 (data) and 4 (2 data ×
-2 model; gloo workers, ``tests/torch_dist_worker.py``).  The workers start
+Sim(3), the merge) on the same inputs, both submaps built as one batch with
+the reference's RANSAC draws injected, and the whole pipeline on
+tests/test_distributed_slam.py's 16-frame sequence at world sizes 1 (this
+process), 2 (data) and 4 (2 data × 2 model; gloo workers,
+``tests/torch_dist_worker.py``).  World size 1 builds both segments as one
+batch, each rank of world size 2 one segment alone.  The workers start
 first and run while the references compute."""
 import dataclasses
 
@@ -177,47 +179,61 @@ def test_merge_submaps_of_the_reference_submaps_equals_its_merge(jax_submaps):
     np.testing.assert_allclose(merged["X"], jmerged["X"], atol=1e-6)
 
 
-def test_build_submap_with_injected_draws_matches_jax(seq, jax_submaps):
-    """Segment 0 built by the port with the reference's own minimal sets
-    (its bootstrap candidates' and every frame's PnP draws, from the keys
-    ``build_submaps`` gives segment 0) against the reference's submap:
+@pytest.fixture(scope="module")
+def injected_batch(seq, jax_submaps):
+    """Both segments built by the port as one batch (``build_submap`` over
+    the segment axis) with the reference's own minimal sets injected for
+    each: segment s's bootstrap candidates' and every frame's PnP draws,
+    from the keys ``build_submaps`` gives segment s."""
+    jcfg, cfg, K = seq["jcfg"], seq["cfg"], seq["tK"]
+    sk, sd, sm = (_np(x) for x in jax_submaps["segments"])
+    S = sk.shape[0]
+    H = jcfg.two_view.ransac.num_hypotheses
+    f_idx, step_keys = [], []
+    for s, key in enumerate(jax.random.split(jax.random.PRNGKey(SEED), S)):
+        key, k0 = jax.random.split(key)
+        m = _match(JDescriptors(data=jnp.asarray(sd[s, 0]), mask=jnp.asarray(sm[s, 0])),
+                   JDescriptors(data=jnp.asarray(sd[s, 1]), mask=jnp.asarray(sm[s, 1])),
+                   jcfg.two_view.matcher)
+        f_idx.append(np.stack([_np(_index_sets(k, m.mask, H, 8))
+                               for k in jax.random.split(k0, jcfg.bootstrap_candidates)]))
+        keys, k = {}, key
+        for i in range(2, SEG):
+            k, ki = jax.random.split(k)
+            keys[i] = jax.random.split(ki)[0]
+        step_keys.append(keys)
+
+    def pnp_samples(i, state):
+        a = associate(state, torch.from_numpy(sd[:, i]), torch.from_numpy(sm[:, i]), cfg)
+        return torch.from_numpy(np.stack([
+            _np(_index_sets(step_keys[s][i], jnp.asarray(a.corr_m[s].numpy()),
+                            jcfg.pnp_hypotheses, 6, jnp.asarray(a.logits[s].numpy())))
+            for s in range(S)]))
+
+    return tds.build_submap(torch.from_numpy(sk), torch.from_numpy(sd), torch.from_numpy(sm),
+                            K, None, cfg, f_samples=torch.from_numpy(np.stack(f_idx)),
+                            pnp_samples=pnp_samples)
+
+
+@pytest.mark.parametrize("segment", [0, 1])
+def test_build_submap_with_injected_draws_matches_jax(jax_submaps, injected_batch, segment):
+    """Each segment of the port's batched build with the reference's draws
+    injected (``injected_batch``) against the reference's ``vmap`` build:
     the same frames registered, the same map sizes, camera centres within
     1.5e-2 of each other.  One registration from one state agrees to 1e-4
     (tests/test_torch_sfm.py); over the segment's windowed BAs and its
     full-window BA (f32 LM with PCG in both packages) the centres drift
     apart by up to 7.7e-3, 0.3 % of the segment's 2.7-unit extent."""
-    jcfg, cfg, K = seq["jcfg"], seq["cfg"], seq["tK"]
-    sk, sd, sm = (_np(x[0]) for x in jax_submaps["segments"])
-    key = jax.random.split(jax.random.PRNGKey(SEED), 2)[0]
-    key, k0 = jax.random.split(key)
-    m = _match(JDescriptors(data=jnp.asarray(sd[0]), mask=jnp.asarray(sm[0])),
-               JDescriptors(data=jnp.asarray(sd[1]), mask=jnp.asarray(sm[1])),
-               jcfg.two_view.matcher)
-    H = jcfg.two_view.ransac.num_hypotheses
-    f_idx = np.stack([_np(_index_sets(k, m.mask, H, 8))
-                      for k in jax.random.split(k0, jcfg.bootstrap_candidates)])
-    step_keys, k = {}, key
-    for i in range(2, SEG):
-        k, ki = jax.random.split(k)
-        step_keys[i] = jax.random.split(ki)[0]
-
-    def pnp_samples(i, state):
-        a = associate(state, torch.from_numpy(sd[i]), torch.from_numpy(sm[i]), cfg)
-        return torch.from_numpy(_np(_index_sets(step_keys[i], jnp.asarray(a.corr_m.numpy()),
-                                                jcfg.pnp_hypotheses, 6,
-                                                jnp.asarray(a.logits.numpy()))))
-
-    state, regs = tds.build_submap(torch.from_numpy(sk), torch.from_numpy(sd),
-                                   torch.from_numpy(sm), K, None, cfg,
-                                   f_samples=torch.from_numpy(f_idx), pnp_samples=pnp_samples)
-    js = jax_submaps["states"]
-    np.testing.assert_array_equal(regs.numpy(), jax_submaps["regs"][0])
-    assert regs.all()
+    states, regs = injected_batch
+    js, s = jax_submaps["states"], segment
+    np.testing.assert_array_equal(regs[s].numpy(), jax_submaps["regs"][s])
+    assert regs[s].all()
     for f in ("num_cams", "num_lms", "num_obs"):
-        assert int(getattr(state, f)) == int(getattr(js, f)[0]), f
-    n = int(state.num_cams)
-    c = -(state.poses.R[:n].transpose(-1, -2) @ state.poses.t[:n, :, None])[..., 0]
-    jR, jt = _np(js.poses.R[0])[:n], _np(js.poses.t[0])[:n]
+        assert int(getattr(states, f)[s]) == int(getattr(js, f)[s]), f
+    n = int(states.num_cams[s])
+    R, t = states.poses.R[s, :n], states.poses.t[s, :n]
+    c = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    jR, jt = _np(js.poses.R[s])[:n], _np(js.poses.t[s])[:n]
     jc = -np.einsum("cji,cj->ci", jR, jt)
     np.testing.assert_allclose(c.numpy(), jc, atol=1.5e-2)
 

@@ -143,9 +143,9 @@ exits non-zero before the result line:
 
 Bounds are each kernel's work count on the inputs it was given
 (``ops/kernels/work.py``: bytes read and written once, operations in the
-kernel's unit, masked train rows of K1 and K4 not counted) against the
-card's published peaks (``utils/profiling.chip_peaks``, NVIDIA H100 SXM
-data sheet: 3.35 TB/s of device memory and 67 TFLOP/s fp32, an FMA counted
+kernel's unit, masked train rows of K1 and K4 and masked points of K2 not
+counted) against the card's published peaks (``utils/profiling.chip_peaks``,
+NVIDIA H100 SXM data sheet: 3.35 TB/s of device memory and 67 TFLOP/s fp32, an FMA counted
 as two flops, so 33.5 T fp32 instructions/s).  Kernels built with
 ``--fmad=false`` (K2, K3) execute one instruction per multiply or add.
 Population counts (K4) retire at 16 per clock per SM against 128 fp32 lanes
@@ -369,12 +369,13 @@ def _ransac_case(tag: str, H: int, N: int, gen, dev, measure, min_best=None, P: 
                             (sp1, sp2), k3_bound, plain_iters=3)
     args = (kF, p1, p2, pmask, 1.5)
     kc = ransac_score_hypotheses(*args)
+    tile = ransac_score_hypotheses.last_tile
     pc = ransac_score_plain(*args)
     torch.cuda.synchronize()
     cdiff = int((kc - pc).abs().max())
     k2_bound = _bound_of(ransac_score_hypotheses, *args)
     print(f"kernel K2 {tag} {P}x{H}x{N}: max|count diff| {cdiff} (tol 0), "
-          f"max count {int(kc.max())}/{N}")
+          f"max count {int(kc.max())}/{N}, tile (warps, hypotheses a warp) {tile}")
     _check(cdiff == 0 and int(kc.max()) > (N // 2 if min_best is None else min_best),
            f"K2 {tag} disagrees with plain")
     k2_ms, k2_pms = measure(f"K2 {tag} {P}x{H}x{N}", ransac_score_hypotheses,
@@ -382,7 +383,7 @@ def _ransac_case(tag: str, H: int, N: int, gen, dev, measure, min_best=None, P: 
     return dict(K3=dict(shape=[P, H], max_abs_err=0.0, ms=k3_ms, plain_ms=k3_pms, **k3_bound,
                         library_ms=None, group=group),
                 K2=dict(shape=[P, H, N], max_abs_err=float(cdiff), ms=k2_ms, plain_ms=k2_pms,
-                        **k2_bound, library_ms=None))
+                        **k2_bound, library_ms=None, tile=tile))
 
 
 def _rendered_frames(dev, num_frames: int):
@@ -2083,22 +2084,27 @@ def main() -> int:
     kF = kFs[B]
 
     per_cell = work.ransac_score_ops_per_cell()
-    times, errs = {}, []
+    times, errs, tiles = {}, [], {}
     for nb in (B, 1):
         args = (kF[:nb], p1[:nb], p2[:nb], pmask[:nb], 1.5)
         kc = ransac_score_hypotheses(*args)
+        tiles[nb] = ransac_score_hypotheses.last_tile
         pc = ransac_score_plain(*args)
         torch.cuda.synchronize()
         cdiff = int((kc - pc).abs().max())
         print(f"kernel K2 x{nb}: max|count diff| {cdiff} (tol 0), "
-              f"max count {int(kc.max())}/{N} ({per_cell} fp32 ops per cell)")
+              f"max count {int(kc.max())}/{N} ({per_cell} fp32 ops per valid cell), "
+              f"tile (warps, hypotheses a warp) {tiles[nb]}")
         # same association order and --fmad=false: the same gates, every count equal
         _check(cdiff == 0 and int(kc.max()) > N // 2, f"K2 x{nb} disagrees with plain")
         bound = _bound_of(ransac_score_hypotheses, *args)
         times[nb] = (*measure(f"K2 x{nb}", ransac_score_hypotheses, ransac_score_plain,
                               args, bound), bound)
         errs.append(float(cdiff))
-    report["K2"] = entry(max(errs), times[B], times[1])
+    report["K2"] = dict(entry(max(errs), times[B], times[1]), tile=tiles[B],
+                        tile_one_pair=tiles[1])
+    print(f"kernel K2 one pair {H}x{N}: {times[1][0]:.5f} ms beside the launch floor "
+          f"{launch_floor:.5f} ms (bound {times[1][2]['bound_ms']:.5f} ms)")
 
     # K4: the ORB slice's shapes (1024 keypoints, 256-bit descriptors)
     HB, HN, HW = 64, 1024, 8

@@ -45,19 +45,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def ptxas_report(csrc: str) -> list:
-    """ptxas's resource lines for each kernel of ``csrc/eightpoint.cu``."""
+def ptxas_report(csrc: str, source: str = "eightpoint.cu", sass: bool = False) -> list:
+    """ptxas's resource lines for each kernel of ``csrc/<source>``; with
+    ``sass``, also each kernel's SASS opcodes and their counts (from
+    ``cuobjdump -sass`` of the same cubin)."""
     from points_matching_tpu_torch.ops.kernels import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "kernel.cubin")
         proc = subprocess.run(
             [_build._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-I", csrc,
-             "-o", os.path.join(tmp, "eightpoint.cubin"),
-             os.path.join(csrc, "eightpoint.cu")],
+             "-o", cubin, os.path.join(csrc, source)],
             capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        dump = ""
+        if sass:
+            cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+            dump = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                                  text=True, check=True).stdout
     rows, name = [], None
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -75,6 +82,21 @@ def ptxas_report(csrc: str) -> list:
             smem = re.search(r"(\d+) bytes smem", m.group(2))
             rows[-1].update(registers=int(m.group(1)),
                             smem=int(smem.group(1)) if smem else 0)
+    if sass:
+        opcodes, name = {}, None
+        for line in dump.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                opcodes[name] = {}
+                continue
+            m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m and name:
+                op = m.group(1).split(".")[0]
+                opcodes[name][op] = opcodes[name].get(op, 0) + 1
+        for row in rows:
+            row["sass"] = dict(sorted(opcodes.get(row["kernel"], {}).items(),
+                                      key=lambda kv: -kv[1]))
     return rows
 
 
@@ -227,10 +249,10 @@ SWEEP_PAIRS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 def groups(parent_csrc) -> None:
     import torch
 
-    from chip_smoke import _graph_ms
     from points_matching_tpu_torch.ops.kernels import _build
     from points_matching_tpu_torch.ops.kernels.eightpoint_kernel import (
         GROUPS, minimal_eight_point, minimal_eight_point_plain)
+    from points_matching_tpu_torch.utils.profiling import cuda_graph_ms
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -239,7 +261,7 @@ def groups(parent_csrc) -> None:
     sms = _build.sm_count(0)
     parent = parent_kernel(parent_csrc) if parent_csrc else None
     one = torch.zeros(1, device=dev)
-    print(f"launch_floor_ms {_graph_ms(lambda: one.add_(1)):.5f}")
+    print(f"launch_floor_ms {cuda_graph_ms(lambda: one.add_(1)):.5f}")
     sp1, sp2 = samples()
     for nb in SWEEP_PAIRS:
         a, c = sp1[:nb], sp2[:nb]
@@ -257,7 +279,7 @@ def groups(parent_csrc) -> None:
         order = (["parent"] if parent else []) + list(GROUPS)
         times = {k: [] for k in order}
         for name in order + order[::-1]:
-            times[name].append(_graph_ms(runs[name]))
+            times[name].append(cuda_graph_ms(runs[name]))
         best = min(GROUPS, key=lambda g: max(times[g]))
         rule = _build.eight_point_group(count, sms)
         print(f"samples {count}: rule G = {rule}, fastest G = {best} (by the slower turn); "

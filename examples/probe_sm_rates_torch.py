@@ -17,8 +17,9 @@ distinct rows at one column fall in disjoint bank groups):
 
 Prints, per pattern, warp-wide loads per SM per clock at the SM clock that
 `nvidia-smi` reports during the run, and the bytes per clock that implies;
-then fp32 FMAs per SM per clock for 32 independent accumulators a thread
-(no memory operand), against the 128 lanes of an SM.
+then fp32 FMAs, and separate multiplies and adds (as kernels built with
+``--fmad=false`` issue them), per SM per clock for 32 independent
+accumulators a thread (no memory operand), against the 128 lanes of an SM.
 Builds with nvcc into build/probe/ and needs one CUDA device.
 """
 from __future__ import annotations
@@ -72,9 +73,28 @@ extern "C" __global__ void fma_rate(float* out, float x, int iters) {
   for (int j = 0; j < 32; ++j) s += acc[j];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
+// separate fp32 multiplies and adds (__fmul_rn / __fadd_rn are never
+// contracted into FMAs), as the kernels built with --fmad=false issue them
+extern "C" __global__ void mul_add_rate(float* out, float x, int iters) {
+  float acc[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) acc[j] = threadIdx.x + j;
+  const float y = x * 0.5f;
+  for (int i = 0; i < iters; i += 2) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = __fmul_rn(acc[j], x);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = __fadd_rn(acc[j], y);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s += acc[j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
 extern "C" int run(float* out, int mode, int iters, int blocks, int threads) {
   if (mode < 4) lds<<<blocks, threads>>>(out, mode, iters);
-  else fma_rate<<<blocks, threads>>>(out, 0.999f, iters);
+  else if (mode == 4) fma_rate<<<blocks, threads>>>(out, 0.999f, iters);
+  else mul_add_rate<<<blocks, threads>>>(out, 0.999f, iters);
   return (int)cudaGetLastError();
 }
 """
@@ -125,23 +145,26 @@ def main() -> int:
         print(f"{name:9s}: {ms:.3f} ms, {per_sm_clk:.3f} warp loads per SM per clock "
               f"({per_sm_clk * 512:.0f} B/clk as if every lane's 16 B were moved; "
               f"SM clock {clock} MHz)")
-    for threads in (128, 256, 512):
-        iters = 1 << 12
-        for _ in range(2):
-            lib.run(out.data_ptr(), 4, iters, blocks, threads)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        lib.run(out.data_ptr(), 4, iters, blocks, threads)
-        end.record()
-        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-                               capture_output=True, text=True).stdout.strip()
-        end.synchronize()
-        ms = start.elapsed_time(end)
-        fmas = blocks * threads * iters * 32
-        per_sm_clk = fmas / sms / (ms * 1e-3 * float(clock) * 1e6)
-        print(f"ffma, {threads // 32 * blocks // sms} warps/SM: {ms:.3f} ms, {per_sm_clk:.1f} FMAs "
-              f"per SM per clock of 128 (SM clock {clock} MHz)")
+    for mode, name in ((4, "ffma"), (5, "fmul+fadd")):
+        for threads in (128, 256, 512):
+            iters = 1 << 12
+            for _ in range(2):
+                lib.run(out.data_ptr(), mode, iters, blocks, threads)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            lib.run(out.data_ptr(), mode, iters, blocks, threads)
+            end.record()
+            clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                    "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True).stdout.strip()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            ops = blocks * threads * iters * 32
+            per_sm_clk = ops / sms / (ms * 1e-3 * float(clock) * 1e6)
+            print(f"{name}, {threads // 32 * blocks // sms} warps/SM: {ms:.3f} ms, "
+                  f"{per_sm_clk:.1f} fp32 instructions per SM per clock of 128 "
+                  f"(SM clock {clock} MHz)")
     return 0
 
 

@@ -42,8 +42,8 @@ _F = ctypes.c_float
 _SIGNATURES: Dict[str, list] = {
     # q, t, t_mask, t_points, dist, idx, pts, part, q2, B, N1, N2, D, P, S, bf16, stream
     "pmt_l2_top2": [_P] * 9 + [_I] * 7 + [_P],
-    # F, p1, p2, mask, counts, B, H, N, tau2, stream
-    "pmt_ransac_score": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # F, p1, p2, mask, counts, B, H, N, tau2, warps, per_warp, stream
+    "pmt_ransac_score": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
     # sp1, sp2, F, count, group, stream
     "pmt_eight_point": [_P] * 3 + [_I, _I, _P],
     # q, t, t_mask, dist, idx, part, B, N1, N2, W, S, stream
@@ -180,3 +180,33 @@ def eight_point_group(count: int, num_sms: int) -> int:
     alone gives the SMs their warps, the extra lanes only queue.  G changes
     no bit of the result."""
     return 8 if count <= EIGHT_POINT_GROUP_SAMPLES_PER_SM * num_sms else 1
+
+
+# K2 (the RANSAC scorer) is built for these warps a block and hypotheses a
+# warp.  On the H100, from one pair to 1,132 (examples/probe_ransac_score_torch.py
+# --shapes, PERF.md): two warps a block were fastest while the batch held at
+# most 4 hypotheses an SM (one pair of 128 to 512), eight above; and the
+# most hypotheses a warp of 1, 2, 4, 8, 16 that still left 8 warps an SM.  Four
+# warps a block were fastest at no shape the paths launch and are not built.
+RANSAC_SCORE_WARPS = (2, 8)
+RANSAC_SCORE_PER_WARP = (1, 2, 4, 8, 16)
+RANSAC_SCORE_FEW_HYPS_PER_SM = 4
+RANSAC_SCORE_WARPS_PER_SM = 8
+
+
+def ransac_score_tile(pairs: int, hyps: int, num_sms: int) -> Tuple[int, int]:
+    """(warps a block, hypotheses a warp) of the RANSAC scorer (K2) for
+    ``pairs`` × ``hyps`` hypotheses: 2 warps a block while there are at most
+    ``RANSAC_SCORE_FEW_HYPS_PER_SM`` hypotheses an SM, else 8; hypotheses a
+    warp the most of ``RANSAC_SCORE_PER_WARP`` that leaves at least
+    ``RANSAC_SCORE_WARPS_PER_SM`` warps an SM.  A warp scores its hypotheses
+    over the same points in registers, so more hypotheses a warp load each
+    point fewer times but spread the batch over fewer warps.  The tile
+    changes no count."""
+    total = pairs * hyps
+    warps = 2 if total <= RANSAC_SCORE_FEW_HYPS_PER_SM * num_sms else 8
+    per_warp = 1
+    while (per_warp < RANSAC_SCORE_PER_WARP[-1]
+           and total // (2 * per_warp) >= RANSAC_SCORE_WARPS_PER_SM * num_sms):
+        per_warp *= 2
+    return warps, per_warp

@@ -3,11 +3,16 @@ pairs.
 
 Replaces the TPU kernel ``points_matching_tpu/ops/pallas/ransac_kernel.py``
 ``ransac_score_hypotheses``.  CUDA source:
-``points_matching_tpu_torch/csrc/ransac_score.cu`` (one warp per
-(pair, hypothesis), F in registers, correspondences staged in shared
-memory, warp-shuffle count).  On the card it is bound by fp32 issue
-(~35 flops per hypothesis × point; K = 3 products gain nothing from tensor
-cores).  Only the [B, H] counts leave the chip.
+``points_matching_tpu_torch/csrc/ransac_score.cu``: a warp scores one
+hypothesis at a time with its lanes splitting the pair's points, which a
+block stages once into shared memory (a masked point as NaN, which no gate
+passes) and each lane then holds in registers across its warp's
+hypotheses; a warp's count is one REDUX.  The tile — (warps a block,
+hypotheses a warp) — comes from ``_build.ransac_score_tile``; it changes no
+count.
+On the card it is bound by fp32 issue (~36 operations per hypothesis ×
+point; K = 3 products gain nothing from tensor cores).  Only the [B, H]
+counts leave the chip.
 
 Both the kernel and the plain version score in exact fp32 — the TPU's
 ``exact``/``fast`` split existed only for its bf16 passes.
@@ -21,6 +26,9 @@ from points_matching_tpu_torch.ops.kernels import work as _work
 from points_matching_tpu_torch.utils.sanitize import check_finite, check_index
 
 Tensor = torch.Tensor
+
+# every (warps a block, hypotheses a warp) the CUDA kernel is built for
+TILES = tuple((w, k) for w in _build.RANSAC_SCORE_WARPS for k in _build.RANSAC_SCORE_PER_WARP)
 
 
 def _check_inputs(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor) -> None:
@@ -61,20 +69,24 @@ def ransac_score_plain(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor,
 
 
 def ransac_score_hypotheses(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor,
-                            threshold: float) -> Tensor:
+                            threshold: float, *, _tile=None) -> Tensor:
     """Per-hypothesis inlier counts under the Sampson gate.
 
     Args:
       F_h: [B, H, 3, 3] hypotheses; p1, p2: [B, N, 2] points;
       mask: [B, N] bool validity; threshold: gate in pixels (d < threshold²).
+      _tile: (warps a block, hypotheses a warp) of the CUDA kernel, forced
+        (tests and probes); None lets ``_build.ransac_score_tile`` choose.
 
     Returns counts [B, H] int32.
     """
     _check_inputs(F_h, p1, p2, mask)
+    if _tile is not None and (not isinstance(_tile, tuple) or _tile not in TILES):
+        raise ValueError(f"_tile must be one of {TILES}, got {_tile!r}")
     if F_h.device.type == "cpu":
         counts = ransac_score_plain(F_h, p1, p2, mask, threshold)
     elif F_h.device.type == "cuda":
-        counts = _launch(F_h, p1, p2, mask, threshold)
+        counts = _launch(F_h, p1, p2, mask, threshold, _tile)
         ransac_score_hypotheses.launches += 1
     else:
         raise ValueError(f"unsupported device {F_h.device}")
@@ -83,7 +95,8 @@ def ransac_score_hypotheses(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor,
     return counts
 
 
-def _launch(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: float) -> Tensor:
+def _launch(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: float,
+            _tile) -> Tensor:
     if not all(x.is_contiguous() for x in (F_h, p1, p2, mask)):
         raise ValueError("the CUDA kernel needs contiguous inputs")
     if p1.data_ptr() % 8 or p2.data_ptr() % 8:
@@ -91,15 +104,18 @@ def _launch(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: float)
     lib = _build.library()
     B, H = F_h.shape[:2]
     N = p1.shape[1]
+    tile = _tile or _build.ransac_score_tile(B, H, _build.sm_count(F_h.device.index))
     counts = torch.empty((B, H), dtype=torch.int32, device=F_h.device)
     with torch.cuda.device(F_h.device):
         rc = lib.pmt_ransac_score(
             F_h.data_ptr(), p1.data_ptr(), p2.data_ptr(), mask.data_ptr(),
-            counts.data_ptr(), B, H, N, float(threshold) ** 2,
+            counts.data_ptr(), B, H, N, float(threshold) ** 2, *tile,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_ransac_score")
+    ransac_score_hypotheses.last_tile = tile
     return counts
 
 
 ransac_score_hypotheses.launches = 0
+ransac_score_hypotheses.last_tile = None     # (warps, per_warp) of the last launch
 ransac_score_hypotheses.work = _work.ransac_score_work

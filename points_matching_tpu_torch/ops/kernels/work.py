@@ -127,9 +127,11 @@ def eight_point_work(sp1, sp2, **_) -> Work:
 
 
 def ransac_score_work(F_h, p1, p2, mask, threshold=None) -> Work:
-    """K2: each hypothesis read and its count written once, each point pair
-    and its mask bit read once; the plain version's operations a cell."""
+    """K2: each hypothesis read and its count written once, each mask bit
+    and each valid point pair read once; the plain version's operations a
+    cell, over the valid cells (a masked point needs no gate)."""
     B, H = F_h.shape[:2]
     N = p1.shape[1]
-    return Work(B * H * (9 + 1) * 4 + B * N * (2 * 2 * 4 + 1),
-                B * H * N * ransac_score_ops_per_cell(), "instr")
+    valid = int(mask.sum())
+    return Work(B * H * (9 + 1) * 4 + B * N + valid * 2 * 2 * 4,
+                H * valid * ransac_score_ops_per_cell(), "instr")

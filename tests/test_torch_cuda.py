@@ -131,8 +131,13 @@ def test_top2_kernels_one_pair_equals_its_batched_rows(dev):
         assert all(torch.equal(a, b[k:k + 1]) for a, b in zip(one, batched))
 
 
-@pytest.mark.parametrize("b,h,n", [(2, 300, 777), (1, 33, 2500),
-                                   (1, 128, 256)])     # config 4's bootstrap
+# (2, 300, 777), (1, 33, 2500): ragged tiles, N above one block's share;
+# then the paths' shapes: one pair of the SURF slice (512 × 512), the bench
+# head's 64 pairs, the SLAM demo's RANSAC (256 × 512), config 4's one pair
+# (128 × 256) and its bootstrap at S = 16 (64 pairs) and S = 75 (300)
+@pytest.mark.parametrize("b,h,n", [(2, 300, 777), (1, 33, 2500), (1, 512, 512),
+                                   (64, 512, 512), (1, 256, 512), (1, 128, 256),
+                                   (64, 128, 256), (300, 128, 256)])
 def test_ransac_score_kernel_matches_plain(dev, b, h, n):
     from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
         ransac_score_hypotheses, ransac_score_plain)
@@ -147,6 +152,122 @@ def test_ransac_score_kernel_matches_plain(dev, b, h, n):
     torch.cuda.synchronize()
     # same association order, --fmad=false: the same gates
     assert torch.equal(kc, pc)
+
+
+def _score_case(gen, b, h, n, dev, masked=0.05):
+    F = torch.randn(b, h, 3, 3, generator=gen, device=dev) * 1e-3
+    p1 = torch.rand(b, n, 2, generator=gen, device=dev) * 640
+    p2 = p1 + 2 * torch.randn(b, n, 2, generator=gen, device=dev)
+    mask = torch.rand(b, n, generator=gen, device=dev) >= masked
+    return F, p1, p2, mask
+
+
+def _each_tile_equals_plain(F, p1, p2, mask, threshold=1.5):
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import (
+        TILES, ransac_score_hypotheses, ransac_score_plain)
+
+    want = ransac_score_plain(F, p1, p2, mask, threshold)
+    for tile in (None,) + TILES:
+        before = ransac_score_hypotheses.launches
+        got = ransac_score_hypotheses(F, p1, p2, mask, threshold, _tile=tile)
+        assert ransac_score_hypotheses.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (tile, int((got - want).abs().max()))
+    return want
+
+
+# H = 1; N = 1; every point masked; H and N off every multiple of the
+# 32-hypothesis tile and the 1,024-point round; N above one round of a
+# block (C = 1) and above a cluster block's share; no point at all
+@pytest.mark.parametrize("b,h,n,masked", [(1, 1, 300, 0.05), (3, 70, 1, 0.0),
+                                          (2, 64, 500, 1.0), (2, 33, 1025, 0.05),
+                                          (1, 97, 3000, 0.3), (5, 31, 2049, 0.05),
+                                          (2, 40, 0, 0.0)])
+def test_ransac_score_kernel_edge_cases_each_tile(dev, b, h, n, masked):
+    gen = torch.Generator(device=dev).manual_seed(h * 7 + n)
+    want = _each_tile_equals_plain(*_score_case(gen, b, h, n, dev, masked))
+    if masked == 1.0 or n == 0:
+        assert int(want.abs().sum()) == 0
+
+
+# the paths' one-pair shapes and config 4's bootstrap at S = 16: every tile
+# the kernel is built for, and the tile the rule picks
+@pytest.mark.parametrize("b,h,n,tile", [(1, 512, 512, (2, 1)), (1, 512, 1024, (2, 1)),
+                                        (1, 128, 256, (2, 1)), (64, 128, 256, (8, 4)),
+                                        (64, 512, 512, (8, 16))])
+def test_ransac_score_every_tile_equals_plain_at_path_shapes(dev, b, h, n, tile):
+    from points_matching_tpu_torch.ops.kernels.ransac_kernel import ransac_score_hypotheses
+
+    gen = torch.Generator(device=dev).manual_seed(b + h + n)
+    args = _score_case(gen, b, h, n, dev)
+    _each_tile_equals_plain(*args)
+    ransac_score_hypotheses(*args, 1.5)
+    assert ransac_score_hypotheses.last_tile == tile
+
+
+def _ulps(v, k):
+    """float32 ``v`` moved k ulps (toward +inf for k > 0)."""
+    for _ in range(abs(k)):
+        v = np.nextafter(v, np.float32(np.sign(k) * np.inf))
+    return v
+
+
+def test_ransac_score_kernel_near_gate_and_tiny_denominators(dev):
+    """Points placed at Sampson distance τ² of hypothesis 0 and then moved
+    -4..4 ulps in x2, so that the plain version's own f32 gate sits within
+    1 ulp of its threshold on some cells; copies of hypothesis 0 scaled by
+    1e-5, 1e-6 and 1e-7, whose denom falls to and below 1e-12 (there the
+    clamp decides); non-finite F and points.  Every tile equals plain."""
+    g = np.random.RandomState(11)
+    tau, H, M = 1.5, 64, 96
+    F64 = g.randn(H, 3, 3) * 1e-3
+    for i in range(H // 2, H):
+        F64[i] = F64[0] * 10.0 ** -(5 + i % 3)
+    f = F64[0]
+    x1 = np.c_[g.uniform(0, 640, M), g.uniform(0, 480, M), np.ones(M)]
+    line = x1 @ f.T                                   # (a1, a2, a3) of each point
+    normal = line[:, :2] / np.hypot(line[:, 0], line[:, 1])[:, None]
+    on = np.c_[g.uniform(0, 640, M), np.zeros(M)]
+    on[:, 1] = -(line[:, 0] * on[:, 0] + line[:, 2]) / line[:, 1]
+    t = np.full(M, tau)
+    for _ in range(30):                               # Newton-like, in float64
+        p2 = on + t[:, None] * normal
+        b = np.c_[p2, np.ones(M)] @ f
+        r = np.sum(np.c_[p2, np.ones(M)] * line, 1)
+        d = r * r / (line[:, 0] ** 2 + line[:, 1] ** 2 + b[:, 0] ** 2 + b[:, 1] ** 2)
+        t = t * np.sqrt(tau * tau / d)
+    p2 = (on + t[:, None] * normal).astype(np.float32)
+    shifts = range(-4, 5)
+    P1 = np.repeat(x1[:, :2].astype(np.float32), len(shifts), 0)
+    P2 = np.stack([np.c_[_ulps(p2[:, 0], k), p2[:, 1]] for k in shifts], 1).reshape(-1, 2)
+    P1[:3] = [[np.nan, 1.0], [np.inf, 2.0], [-np.inf, np.inf]]   # non-finite points
+    F32 = F64.astype(np.float32)
+    F32[1, 0, 0], F32[2, 2, 2] = np.nan, np.inf                  # non-finite hypotheses
+    mask = np.ones(len(P1), bool)
+    mask[5::17] = False
+    F_t, p1_t, p2_t, m_t = (torch.from_numpy(np.ascontiguousarray(x))[None].to(dev)
+                            for x in (F32, P1, P2, mask))
+    want = _each_tile_equals_plain(F_t, p1_t, p2_t, m_t, tau)
+    # the case is near the gate: on hypothesis 0 both sides are taken, and
+    # some cell's r² is within 1 ulp of τ²·max(denom, 1e-12) (the plain ops)
+    f0 = F_t[0, 0]
+    xa, ya, xb, yb = p1_t[0, :, 0], p1_t[0, :, 1], p2_t[0, :, 0], p2_t[0, :, 1]
+    a1 = f0[0, 0] * xa + f0[0, 1] * ya + f0[0, 2]
+    a2 = f0[1, 0] * xa + f0[1, 1] * ya + f0[1, 2]
+    a3 = f0[2, 0] * xa + f0[2, 1] * ya + f0[2, 2]
+    b1 = f0[0, 0] * xb + f0[1, 0] * yb + f0[2, 0]
+    b2 = f0[0, 1] * xb + f0[1, 1] * yb + f0[2, 1]
+    r = a1 * xb + a2 * yb + a3
+    lhs = r * r
+    rhs = (tau * tau) * (a1 * a1 + a2 * a2 + b1 * b1 + b2 * b2).clamp_min(1e-12)
+    ulp = torch.nextafter(rhs, torch.full_like(rhs, float("inf"))) - rhs
+    assert int(((lhs - rhs).abs() <= ulp).sum()) > 0
+    valid = int(m_t.sum())
+    assert 0 < int(want[0, 0]) < valid
+    # scaled by 1e-7 (i % 3 == 2): denom < 1e-12, the clamp lets every
+    # finite valid point through
+    tiny = [i for i in range(H // 2, H) if i % 3 == 2]
+    assert all(int(want[0, i]) >= valid - 3 for i in tiny)
 
 
 def test_eight_point_kernel_matches_plain(dev):

@@ -1,0 +1,44 @@
+"""The port's example scripts import names that exist.
+
+The probes and profilers under ``examples/`` run only on the card, where a
+name that moved (a helper of ``chip_smoke.py`` that went to
+``utils/profiling``, say) fails only when the script is run.  Here every
+``from X import a, b`` in them — at the top or inside a function — whose
+module is ``chip_smoke``, the port's package or another example is
+resolved on the CPU, without running the script.
+"""
+import ast
+import glob
+import importlib
+import importlib.util
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
+LOCAL = {os.path.splitext(os.path.basename(p))[0] for p in EXAMPLES} | {"chip_smoke"}
+
+
+def _imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            top = node.module.split(".")[0]
+            if top == "points_matching_tpu_torch" or node.module in LOCAL:
+                yield node.module, [a.name for a in node.names], node.lineno
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
+def test_example_imports_resolve(path, monkeypatch):
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "examples"))
+    monkeypatch.syspath_prepend(ROOT)
+    missing = []
+    for module, names, line in _imports(path):
+        mod = importlib.import_module(module)
+        for n in names:
+            submodule = hasattr(mod, "__path__") and importlib.util.find_spec(f"{module}.{n}")
+            if n != "*" and not hasattr(mod, n) and not submodule:
+                missing.append(f"{module}.{n} (line {line})")
+    assert not missing, missing

@@ -96,13 +96,15 @@ def test_minimal_eight_point_plain_degenerate_is_finite():
     assert torch.isfinite(minimal_eight_point(_t(spd), _t(spd))).all()
 
 
-@pytest.mark.parametrize("h,n", [(256, 128), (50, 77)])
-def test_ransac_score_plain_matches_jax_kernel(h, n):
+# the last `masked` rows invalid; then H = 1, N = 1 and every row masked
+@pytest.mark.parametrize("h,n,masked", [(256, 128, 7), (50, 77, 7), (1, 64, 7),
+                                        (16, 1, 0), (40, 64, 64)])
+def test_ransac_score_plain_matches_jax_kernel(h, n, masked):
     rng = np.random.RandomState(5)
     F_h = rng.randn(h, 3, 3).astype(np.float32) * 1e-3
     p1 = rng.uniform(0, 640, (n, 2)).astype(np.float32)
     p2 = (p1 + 2.0 * rng.randn(n, 2)).astype(np.float32)
-    mask = np.arange(n) < n - 7
+    mask = np.arange(n) < n - masked
     cj = np.asarray(j_score(jnp.asarray(F_h), jnp.asarray(p1), jnp.asarray(p2),
                             jnp.asarray(mask), 1.5, interpret=True, exact=True))
     ct = ransac_score_hypotheses(_t(F_h)[None], _t(p1)[None], _t(p2)[None],
@@ -112,6 +114,8 @@ def test_ransac_score_plain_matches_jax_kernel(h, n):
     # flip — at most 2 per hypothesis
     assert np.abs(cj - ct).max() <= 2, np.abs(cj - ct).max()
     assert np.mean(cj == ct) >= 0.95
+    if masked == n:
+        assert not ct.any() and not cj.any()
 
 
 def _outlier_scene():

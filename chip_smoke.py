@@ -2,7 +2,9 @@
 """Drive the PyTorch port's main paths (two-view SURF and ORB, the staged
 two-view pipeline, the bench head's 64 pairs in one call, incremental SfM
 with loop closure, the pose graph, all-pairs scores, distributed SLAM, the
-SLAM demo on sequences from disk) once on one CUDA GPU.
+SLAM demo on sequences from disk) once on one CUDA GPU, and the probes'
+tensor-core kernels (P1, P2, the score variants) through the port's probe
+scripts.
 
     python3 chip_smoke.py
 
@@ -29,7 +31,8 @@ exits non-zero before the result line:
              kernel's bound (the least time the card could take for the
              same work).  K1, K1b, K3 and K4 on one pair must equal the
              same pair's rows of the batched launch bit for bit, and K3 and
-             K2 must equal their plain versions exactly.
+             K2 must equal their plain versions exactly.  Beside K1 and K1b
+             at 64 pairs, the yardstick ``baddbmm`` + ``topk`` (two calls).
 4. slices  — a rendered 993×660 pair through ``two_view_pipeline`` twice:
              the SURF slice with the demo's ``--config ransac`` settings
              (512 keypoints, 512 hypotheses, plus ``match_descriptors_points``)
@@ -67,6 +70,21 @@ exits non-zero before the result line:
              matches and F finite, unit-norm, rank 2 on every pair; the
              median ms of a step (20 steps) and of the loop (3), pairs/s of
              both, the host's eager launch time beside them.
+   probes  — the probes' path: ``examples/probe_match_variants_torch.py``
+             and ``probe_score_variants_torch.py`` through every variant at
+             their shapes (64 pairs × 512 × 512 × 64-d; 64 × 512 hypotheses
+             × 512 points), the launch counters set to 0 just before and
+             read just after (``launches_by_path.probe``; P1, P2, the score
+             kernel, K1 and K2).  Then P1 (``gemm_rowmin``), P2
+             (``packed_top2``) and the score kernel's three instances against
+             their plain versions at 64 pairs and at one pair (the kernels
+             phase's descriptors, scenes and K3 hypotheses): P1 within 1e-5,
+             P2's indices equal off the rows whose competing keys lie within
+             2 quanta and dist within 2 quanta + 1e-5, the counts of (divide,
+             fp32) equal and those of the bf16 instances off by no more than
+             their cells at the gate; kernel and plain times, bounds, and
+             the yardsticks ``torch.matmul`` + ``amin`` (P1) and ``baddbmm``
+             + ``topk`` (P2) on the same bf16 operands, two calls each.
 5. sfm     — BASELINE config 3 without loop closure: 100 rendered 512×384
              frames → Hessian/SURF on the card → ``run_incremental_sfm``
              (128 / 8,192 / 65,536, ``ba_every=4``, ``chunk_size=16``), held
@@ -136,9 +154,10 @@ exits non-zero before the result line:
              ``trace`` and ``checked`` on the card; GPU against CPU on the KITTI
              tree's first 16 frames.
 6. result  — one JSON line of the SfM, pose-graph, all-pairs, staged,
-             pairs, distributed and slam numbers, one of per-kernel numbers
-             (launches by path: surf, orb, sfm, loop, all_pairs, staged,
-             pairs, distributed, slam), then the last line
+             pairs, distributed and slam numbers, one of the probes' rows,
+             one of per-kernel numbers (launches by path: surf, orb, sfm,
+             loop, all_pairs, staged, pairs, distributed, slam, probe), then
+             the last line
              ``{"ok": true, "device": {...}}``.
 
 Bounds are each kernel's work count on the inputs it was given
@@ -1905,6 +1924,141 @@ def _slam(dev, K_mod, measure, two_view_pair, k1_args, k1_entry) -> dict:
     return out
 
 
+def _library_top2_ms(q, t, t_mask, dtype: str) -> float:
+    """The yardstick beside a top-2 matcher: two PyTorch calls, ``baddbmm``
+    (‖t‖² − 2·q·tᵀ, masked rows at 1e30; bf16 operands and output for
+    ``bf16``) and ``topk(2)``, on operands converted beforehand.  It is
+    timed here and used nowhere in the port."""
+    import torch
+
+    from points_matching_tpu_torch.utils.profiling import cuda_graph_ms
+
+    t2 = torch.where(t_mask, (t * t).sum(-1), torch.full_like(t_mask, 1e30, dtype=q.dtype))
+    if dtype == "bf16":
+        q, t, t2 = (x.to(torch.bfloat16) for x in (q, t, t2))
+    tT = t.transpose(-1, -2).contiguous()
+    return cuda_graph_ms(lambda: torch.topk(torch.baddbmm(t2[:, None, :], q, tT, alpha=-2.0), 2,
+                                            largest=False))
+
+
+def _probes(dev, K_mod, q, t, F, p1, p2, pmask, launch_floor) -> dict:
+    """The probes' path and kernels.  Path: the port's two probe scripts
+    (``examples/probe_match_variants_torch.py``, ``probe_score_variants_torch.py``)
+    through every variant at their full shapes, the launch counters set to
+    0 just before and read just after (``launches_by_path.probe``).  Then
+    each probe kernel against its plain version at 64 pairs and at one pair
+    — P1 (``gemm_rowmin``) within 1e-5; P2 (``packed_top2``) with indices
+    equal off the rows whose competing keys lie within 2 quanta and dist
+    within 2 quanta + 1e-5; the score instances (divide, fp32) equal
+    bit for bit and (divide, bf16 × 1), (multiply, bf16 × 3) off by no more
+    than their cells at the gate — with kernel times (CUDA-graph
+    replays), plain times (CUDA events), bounds and the library yardsticks:
+    ``torch.matmul`` + ``amin`` on the same bf16 operands beside P1,
+    ``baddbmm`` + ``topk`` beside P2 (two calls each)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import probe_match_variants_torch as match_probe
+    import probe_score_variants_torch as score_probe
+
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+    from points_matching_tpu_torch.utils.profiling import cuda_event_ms, cuda_graph_ms
+
+    torch.cuda.synchronize()
+    K_mod.reset_launch_counts()
+    rows = dict(match=match_probe.run(match_probe.VARIANTS, dev),
+                score=score_probe.run(tuple(score_probe.FUNCTIONS), dev))
+    torch.cuda.synchronize()
+    launches = K_mod.launch_counts()
+    print(f"probes: launches on the probes' path {launches}")
+    _check(all(r.get("ok", True) for r in rows["match"]), "a match probe kernel disagrees")
+    _check(all(r["cells_beyond_gate"] == 0 for r in rows["score"]),
+           "a score variant differs from its plain version beyond the gate")
+    _check(all(launches[k] > 0 for k in ("gemm_rowmin", "packed_top2", "score_variant",
+                                         "fused_l2_top2", "ransac_score_hypotheses")),
+           "a kernel of the probes' path never launched")
+
+    def timed(tag, kernel, plain, args, **kw):
+        ms = cuda_graph_ms(lambda: kernel(*args, **kw))
+        pms = cuda_event_ms(lambda: plain(*args, **kw))
+        b = _bound_of(kernel, *args, **kw)
+        print(f"probes {tag}: {ms:.5f} ms vs plain {pms:.5f} ms, bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}, {b['bound_unit']})")
+        return dict(ms=ms, plain_ms=pms, **b)
+
+    def merge(batched, one, err, library, calls):
+        (lib, lib1) = library
+        return dict(max_abs_err=err, **batched, library_ms=lib, library_calls=calls,
+                    ms_one_pair=one["ms"], bound_ms_one_pair=one["bound_ms"],
+                    plain_ms_one_pair=one["plain_ms"], library_ms_one_pair=lib1,
+                    launch_floor_ms=launch_floor)
+
+    B = q.shape[0]
+    t2 = (t * t).sum(-1)
+    out, times, errs, lib = {}, {}, {}, {}
+    for nb in (B, 1):
+        a, b, c = q[:nb], t[:nb], t2[:nb]
+        km, pmin = pm.gemm_rowmin(a, b), pm.gemm_rowmin_plain(a, b)
+        (kd, ki), (pd, pi) = pm.packed_top2(a, b, c), pm.packed_top2_plain(a, b, c)
+        near = pm.near_tie_rows(a, b, c)
+        quantum = pm.quantum(a, c)
+        torch.cuda.synchronize()
+        e1 = float((km - pmin).abs().max())
+        e2 = float((kd - pd).abs().max())
+        bad = int((ki != pi)[~near].any(-1).sum())
+        print(f"probes P1 x{nb}: max |err| {e1:.3g} (tol 1e-05); P2 x{nb}: max |dist err| "
+              f"{e2:.3g} (tol 2 quanta + 1e-05 = {2 * quantum + 1e-5:.3g}), index mismatches "
+              f"off the {int(near.sum())} rows within 2 quanta: {bad}")
+        _check(e1 <= 1e-5, f"P1 x{nb} disagrees with plain")
+        _check(e2 <= 2 * quantum + 1e-5 and bad == 0, f"P2 x{nb} disagrees with plain")
+        errs[nb] = (e1, e2)
+        times[nb] = (timed(f"P1 x{nb}", pm.gemm_rowmin, pm.gemm_rowmin_plain, (a, b)),
+                     timed(f"P2 x{nb}", pm.packed_top2, pm.packed_top2_plain, (a, b, c)))
+        qb, tbT = a.to(torch.bfloat16), b.to(torch.bfloat16).transpose(-1, -2).contiguous()
+        cb = c.to(torch.bfloat16)[:, None, :]
+        lib[nb] = (cuda_graph_ms(lambda: torch.matmul(qb, tbT).amin(-1)),
+                   cuda_graph_ms(lambda: torch.topk(torch.baddbmm(cb, qb, tbT, alpha=-2.0), 2,
+                                                    largest=False)))
+        print(f"probes x{nb} yardsticks: matmul + amin {lib[nb][0]:.5f} ms, baddbmm + topk "
+              f"{lib[nb][1]:.5f} ms (two calls each, bf16)")
+    out["gemm_rowmin"] = merge(times[B][0], times[1][0], max(errs[B][0], errs[1][0]),
+                               (lib[B][0], lib[1][0]), "two calls: torch.matmul (bf16) + amin")
+    out["packed_top2"] = merge(times[B][1], times[1][1], max(errs[B][1], errs[1][1]),
+                               (lib[B][1], lib[1][1]),
+                               "two calls: torch.baddbmm (bf16, t2 - 2 q t^T) + topk")
+
+    instances = {}
+    for gate, products in ps.VARIANTS:
+        tag = f"{gate}/{products}"
+        res, diffs = {}, []
+        for nb in (B, 1):
+            args = (F[:nb], p1[:nb], p2[:nb], pmask[:nb], 1.5)
+            kc = ps.score_variant(*args, gate, products)
+            pc = ps.score_variant_plain(*args, gate, products)
+            near = ps.near_gate_cells(*args, products=products)
+            torch.cuda.synchronize()
+            diff = int((kc - pc).abs().max())
+            beyond = int(((kc - pc).abs() - near).clamp_min(0).sum())
+            print(f"probes score {tag} x{nb}: max |count diff| {diff}, beyond the "
+                  f"{int(near.sum())} cells at the gate {beyond}, max count {int(kc.max())}")
+            if products == "f32":
+                _check(diff == 0, f"score {tag} x{nb} differs from plain")
+            _check(beyond == 0, f"score {tag} x{nb} differs from plain beyond the gate")
+            # one bf16 pass moves pixel coordinates by up to 2 px: its best
+            # hypothesis may keep fewer than half the points
+            _check(products == "bf16x1" or int(kc.max()) > p1.shape[1] // 2,
+                   f"score {tag} x{nb}: no hypothesis keeps half the points")
+            diffs.append(diff)
+            res[nb] = timed(f"score {tag} x{nb}", ps.score_variant, ps.score_variant_plain,
+                            args, gate=gate, products=products)
+        instances[tag] = merge(res[B], res[1], max(diffs), (None, None), None)
+    out["score_variant"] = dict(instances["multiply/bf16x3"], instances=instances)
+    out["rows"] = rows
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1975,8 +2129,9 @@ def main() -> int:
     # are CUDA-graph replays (`cuda_graph_ms`), plain times CUDA events around
     # back-to-back calls (`cuda_event_ms`).  No single PyTorch call computes any
     # of K1-K4 (a fused top-2 over L2 or Hamming distances, a batch of
-    # Sampson-gated counts, a batch of rank-2 minimal 8-point solves), so
-    # every library_ms is null.
+    # Sampson-gated counts, a batch of rank-2 minimal 8-point solves); K1 and
+    # K1b get the two-call yardstick baddbmm + topk, the others a null
+    # library_ms.
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, D, H = 64, 512, 64, 512
 
@@ -2021,7 +2176,10 @@ def main() -> int:
         same = all(torch.equal(a, b[:1]) for a, b in zip(outs[1], outs[B]))
         print(f"kernel K1 {dtype}: one pair == its rows of the batch bit for bit: {same}")
         _check(same, f"K1 {dtype}: one-pair launch differs from the batched one")
-        report[f"K1_{dtype}"] = entry(max(errs), times[B], times[1])
+        lib_ms = _library_top2_ms(q, t, t_mask, dtype)
+        print(f"kernel K1 {dtype} x{B}: yardstick baddbmm + topk {lib_ms:.5f} ms (two calls)")
+        report[f"K1_{dtype}"] = dict(entry(max(errs), times[B], times[1]), library_ms=lib_ms,
+                                     library_calls="two calls: torch.baddbmm + topk")
 
     outs, times, errs = {}, {}, []
     for nb in (B, 1):
@@ -2043,7 +2201,10 @@ def main() -> int:
     same = all(torch.equal(a, b[:1]) for a, b in zip(outs[1], outs[B]))
     print(f"kernel K1b: one pair == its rows of the batch bit for bit: {same}")
     _check(same, "K1b: one-pair launch differs from the batched one")
-    report["K1b"] = entry(max(errs), times[B], times[1])
+    report["K1b"] = dict(entry(max(errs), times[B], times[1]),
+                         library_ms=report["K1_f32"]["library_ms"],
+                         library_calls="two calls: torch.baddbmm + topk (the top-2 alone, "
+                                       "no point gather)")
 
     p1, p2, pmask = _scenes(B, N, gen, dev)
     # 8 distinct correspondences per hypothesis
@@ -2254,6 +2415,10 @@ def main() -> int:
     report["pairs"] = _pairs(dev, K)
     phase_s["pairs"] = time.perf_counter() - t_phase
 
+    t_phase = time.perf_counter()
+    report["probes"] = _probes(dev, K, q, t, kF, p1, p2, pmask, launch_floor)
+    phase_s["probes"] = time.perf_counter() - t_phase
+
     # -- 5. SfM: BASELINE config 3 (without loop closure), the JAX bench's
     # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
     for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
@@ -2271,6 +2436,7 @@ def main() -> int:
     # -- 6. result -----------------------------------------------------------
     src = "points_matching_tpu_torch/csrc/"
     pallas = "points_matching_tpu/ops/pallas/"
+    probe = "benchmarks/probe/"
     report["K1_f32"]["sfm_shapes"] = report["K1_sfm"]
     report["K1_f32"]["config4_shapes"] = report["K1_config4"]
     report["K3"]["config4_one_pair"] = report["ransac_config4"]["K3"]
@@ -2293,6 +2459,7 @@ def main() -> int:
     pairs_launches = report["pairs"].pop("launches")
     dist_launches = report["distributed"].pop("launches")
     slam_launches = report["slam"].pop("launches")
+    probe_launches = report["probes"].pop("launches")
 
     def launches(name):
         by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
@@ -2300,7 +2467,7 @@ def main() -> int:
                        all_pairs=all_pairs["launches"] if name == "fused_l2_top2" else 0,
                        staged=staged_launches[name], pairs=pairs_launches[name],
                        distributed=dist_launches[name],
-                       slam=slam_launches[name])
+                       slam=slam_launches[name], probe=probe_launches[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -2314,6 +2481,8 @@ def main() -> int:
              **launches("fused_l2_top2_points"), **report["K1b"]),
         dict(name="ransac_score_hypotheses", route="cuda", source=src + "ransac_score.cu",
              replaces=pallas + "ransac_kernel.py:122",
+             stands_for=probe + "score_variants.py variants nodiv, stacked, ostack (the "
+                                "multiply gate with fp32 products: K2's function)",
              **launches("ransac_score_hypotheses"), **report["K2"]),
         dict(name="minimal_eight_point", route="cuda", source=src + "eightpoint.cu",
              replaces=pallas + "eightpoint_kernel.py:240",
@@ -2321,12 +2490,24 @@ def main() -> int:
         dict(name="fused_hamming_top2", route="cuda", source=src + "hamming_top2.cu",
              replaces=pallas + "hamming.py:115",
              **launches("fused_hamming_top2"), **report["K4"]),
+        dict(name="gemm_rowmin", route="cuda", source=src + "probe_match.cu",
+             replaces=probe + "match_variants.py:116",
+             **launches("gemm_rowmin"), **report["probes"]["gemm_rowmin"]),
+        dict(name="packed_top2", route="cuda", source=src + "probe_match.cu",
+             replaces=probe + "match_variants.py:192",
+             **launches("packed_top2"), **report["probes"]["packed_top2"]),
+        dict(name="score_variant", route="cuda", source=src + "probe_score.cu",
+             replaces=probe + "score_variants.py:238",
+             also_replaces=probe + "score_variants.py:176",
+             headline="multiply gate, bf16 x 3 products (split3, stack3, ostack3)",
+             **launches("score_variant"), **report["probes"]["score_variant"]),
     ]
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")
     print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba", "pose_graph",
                                                         "all_pairs", "staged", "pairs",
                                                         "distributed", "slam")}))
+    print("probes: " + json.dumps(report["probes"].pop("rows")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

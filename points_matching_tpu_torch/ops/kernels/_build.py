@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 All kernel sources in ``points_matching_tpu_torch/csrc/`` are compiled by
-``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C
-interface, loaded with ``ctypes``.  No PyTorch header is included, so the
+``nvcc`` for Hopper (``sm_90a``), one process a source, all at once, and
+linked into ONE shared library with a plain C interface, loaded with
+``ctypes``.  No PyTorch header is included, so the
 build takes seconds, not minutes.  The library lands in ``build/kernels/``
 at the repository root, named by a hash of the sources and flags, and is
 built at first use: a fresh checkout builds everything it needs.
@@ -48,6 +49,12 @@ _SIGNATURES: Dict[str, list] = {
     "pmt_eight_point": [_P] * 3 + [_I, _I, _P],
     # q, t, t_mask, dist, idx, part, B, N1, N2, W, S, stream
     "pmt_hamming_top2": [_P] * 6 + [_I] * 5 + [_P],
+    # q, t, out, part, B, N1, N2, D, S, stream
+    "pmt_probe_gemm_rowmin": [_P] * 4 + [_I] * 5 + [_P],
+    # q, t, t2, dist, idx, part, q2, B, N1, N2, D, S, stream
+    "pmt_probe_packed_top2": [_P] * 7 + [_I] * 5 + [_P],
+    # F, p1, p2, mask, counts, B, H, N, S, tau2, gate, products, stream
+    "pmt_probe_score": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
 }
 
 last_build: Dict[str, object] = {}
@@ -80,24 +87,47 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernel library if it is not built yet; return its path.
-    ``last_build`` records the seconds taken."""
+    Each source compiles to an object in its own ``nvcc``, all started
+    together, and one more ``nvcc`` links them.  ``last_build`` records the
+    seconds taken."""
     so = library_path()
     if os.path.exists(so):
         last_build.update(path=so, seconds=0.0, cached=True)
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in _sources() if s.endswith(".cu")]
+    objdir = tempfile.mkdtemp(dir=BUILD_DIR)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [os.path.join(objdir, os.path.basename(src) + ".o") for src in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    procs = []
+    try:
+        for src, obj in zip(cu, objs):
+            procs.append(subprocess.Popen(
+                [_nvcc(), *compile_flags, "-I", CSRC, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        errors = []
+        for src, proc in zip(cu, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, so)          # atomic: a concurrent loader never sees half a file
     last_build.update(path=so, seconds=seconds, cached=False)
     return so

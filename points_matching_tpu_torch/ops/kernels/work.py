@@ -15,6 +15,11 @@ here by hand:
   (built with ``--fmad=false``), population counts for K4.  Where the work
   depends on the data it is counted from the inputs: a masked train row of
   K1 or K4 needs no distance, so only the valid rows count.
+* a kernel that spends two units — the probes' tensor-core kernels: bf16
+  products on the matrix unit and an fp32 or integer epilogue a cell on
+  the CUDA cores — carries the second in ``more``; its bound is the
+  largest of the three times, and ``bound_unit`` says which unit set the
+  operations' time.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import functools
 import torch
 
 # which entry of ``chip_peaks`` is the rate of each unit
-UNIT_RATE = {"flops": "flops", "instr": "instr_per_s", "popc": "popc_per_s"}
+UNIT_RATE = {"flops": "flops", "instr": "instr_per_s", "popc": "popc_per_s",
+             "bf16_tc": "bf16_tc_flops"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,16 +38,20 @@ class Work:
     bytes: float
     ops: float
     unit: str            # a key of UNIT_RATE
+    more: tuple = ()     # ((ops, unit), ...) spent in other units beside ``ops``
 
 
 def bound(work: Work, peaks: dict) -> dict:
     """The least time for ``work`` on a device with ``peaks``: the larger
-    of bytes over the memory rate and operations over their peak rate, as
-    ``{"bound_ms": t, "bound_by": "bytes" | "operations"}``."""
+    of bytes over the memory rate and each unit's operations over its peak
+    rate, as ``{"bound_ms": t, "bound_by": "bytes" | "operations",
+    "bound_unit": unit}`` (the unit whose operations take the longest)."""
     t_bytes = work.bytes / (peaks["hbm_gbps"] * 1e9) * 1e3
-    t_ops = work.ops / peaks[UNIT_RATE[work.unit]] * 1e3
+    t_ops, unit = max((ops / peaks[UNIT_RATE[u]] * 1e3, u)
+                      for ops, u in ((work.ops, work.unit), *work.more))
     return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_unit=unit)
 
 
 def elementwise_ops(fn, *args) -> int:
@@ -135,3 +145,71 @@ def ransac_score_work(F_h, p1, p2, mask, threshold=None) -> Work:
     valid = int(mask.sum())
     return Work(B * H * (9 + 1) * 4 + B * N + valid * 2 * 2 * 4,
                 H * valid * ransac_score_ops_per_cell(), "instr")
+
+
+# The probes' kernels (``probe_match.py``, ``probe_score.py``).  Their
+# epilogues, in instructions a cell on the card: the row minimum is one
+# FMNMX; the packed top-2 is d = t2 − 2·acc (one FFMA), the monotone key
+# (a shift and a LOP3), the column in its low bits (a LOP3) and the
+# order-free insertion b2 = min(b2, max(b1, k)), b1 = min(b1, k) (three
+# integer min/max).
+GEMM_ROWMIN_EPILOGUE = 1
+PACKED_TOP2_EPILOGUE = 7
+
+
+def _match_bytes(q, t) -> int:
+    B, N1, D = q.shape
+    return 4 * B * (N1 + t.shape[1]) * D
+
+
+def probe_gemm_rowmin_work(q, t) -> Work:
+    """P1: q and t read once, the row minima written once; 2·N1·N2·D
+    flops on the matrix unit and the minimum a cell."""
+    B, N1, D = q.shape
+    cells = B * N1 * t.shape[1]
+    return Work(_match_bytes(q, t) + 4 * B * N1, 2 * cells * D, "bf16_tc",
+                ((GEMM_ROWMIN_EPILOGUE * cells, "instr"),))
+
+
+def probe_packed_top2_work(q, t, t2) -> Work:
+    """P2: q, t and t2 read once, dist and idx written once; 2·N1·N2·D
+    flops on the matrix unit and the packed-key epilogue a cell."""
+    B, N1, D = q.shape
+    N2 = t.shape[1]
+    cells = B * N1 * N2
+    return Work(_match_bytes(q, t) + 4 * B * N2 + 16 * B * N1, 2 * cells * D, "bf16_tc",
+                ((PACKED_TOP2_EPILOGUE * cells, "instr"),))
+
+
+@functools.lru_cache(maxsize=None)
+def score_variant_ops_per_cell(gate: str, products: str) -> int:
+    """The fp32 operations a (hypothesis, point) cell of a score variant:
+    the whole plain version for fp32 products, its gate alone for the
+    tensor-core ones (their products run on the matrix unit)."""
+    from points_matching_tpu_torch.ops.kernels import probe_score
+
+    F = _one_sample(1, 1, 3, 3) / 500.0
+    p1, p2 = _one_sample(1, 1, 2), _one_sample(1, 1, 2)
+    mask = torch.ones(1, 1, dtype=torch.bool)
+    if products == "f32":
+        return elementwise_ops(probe_score.score_variant_plain, F, p1, p2, mask, 1.5,
+                               gate, products)
+    a = probe_score.variant_products(F, p1, p2, products)
+    return elementwise_ops(probe_score.variant_gate, *a, p2, mask, 1.5 ** 2, gate)
+
+
+def probe_score_work(F_h, p1, p2, mask, threshold=None, gate="multiply",
+                     products="bf16x3") -> Work:
+    """A score variant: K2's bytes; over the valid cells, the plain
+    version's fp32 operations (fp32 products), or the five products a cell
+    on the matrix unit (3 multiply-adds each, three times over for the
+    3-term split) and the gate's fp32 operations."""
+    from points_matching_tpu_torch.ops.kernels.probe_score import PASSES
+
+    nbytes = ransac_score_work(F_h, p1, p2, mask).bytes
+    cells = F_h.shape[1] * int(mask.sum())
+    per_cell = score_variant_ops_per_cell(gate, products)
+    if products == "f32":
+        return Work(nbytes, cells * per_cell, "instr")
+    return Work(nbytes, cells * 5 * 3 * 2 * PASSES[products], "bf16_tc",
+                ((cells * per_cell, "instr"),))

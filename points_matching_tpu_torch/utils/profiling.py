@@ -24,19 +24,21 @@ from points_matching_tpu_torch.ops.kernels.work import UNIT_RATE, Work, bound
 # flops: fp32 FLOP/s without tensor cores (an FMA is two flops);
 # hbm_gbps: device-memory GB/s; instr_per_s: fp32 instructions/s when every
 # multiply and add is its own instruction (kernels built with --fmad=false);
-# popc_per_s: 32-bit population counts/s.
+# popc_per_s: 32-bit population counts/s; bf16_tc_flops: dense bf16
+# tensor-core FLOP/s (a multiply-add is two).
 _CHIP_PEAKS = {
-    # NVIDIA H100 SXM5 data sheet: 67 TFLOP/s fp32, 3.35 TB/s HBM3.  CUDA C++
-    # Programming Guide, arithmetic-instruction throughput for compute
-    # capability 9.0: 128 fp32 results and 16 population counts per clock
-    # per SM, so one instruction per op is half the flop rate and a
-    # population count 16/128 of that.
+    # NVIDIA H100 SXM5 data sheet: 67 TFLOP/s fp32, 3.35 TB/s HBM3, 989
+    # TFLOP/s dense bf16 on the tensor cores.  CUDA C++ Programming Guide,
+    # arithmetic-instruction throughput for compute capability 9.0: 128
+    # fp32 results and 16 population counts per clock per SM, so one
+    # instruction per op is half the flop rate and a population count
+    # 16/128 of that.
     "h100": dict(flops=67e12, hbm_gbps=3350.0, instr_per_s=33.5e12,
-                 popc_per_s=33.5e12 * 16 / 128),
+                 popc_per_s=33.5e12 * 16 / 128, bf16_tc_flops=989e12),
     # the JAX package's CPU row; its instruction and popcount rates follow
-    # the same ratios
+    # the same ratios, and it has no matrix unit beyond its flop rate
     "cpu": dict(flops=1e12, hbm_gbps=100.0, instr_per_s=0.5e12,
-                popc_per_s=0.5e12 * 16 / 128),
+                popc_per_s=0.5e12 * 16 / 128, bf16_tc_flops=1e12),
 }
 
 
@@ -219,6 +221,7 @@ def roofline(fn: Callable, *args, iters: int = 20, timing: str = "events",
         w = work(*args, **kwargs)
         ops, nbytes, unit = w.ops, w.bytes, w.unit
     else:
+        w = None
         ops, nbytes = flops, bytes_accessed
         if ops is None:
             from torch.utils.flop_counter import FlopCounterMode
@@ -232,7 +235,9 @@ def roofline(fn: Callable, *args, iters: int = 20, timing: str = "events",
 
     peaks = chip_peaks(dev)
     rate = peaks[UNIT_RATE[unit]]
-    b = bound(Work(nbytes or 0.0, ops or 0.0, unit), peaks) if (ops or nbytes) else None
+    if w is None:
+        w = Work(nbytes or 0.0, ops or 0.0, unit)
+    b = bound(w, peaks) if (ops or nbytes) else None
     bound_s = b["bound_ms"] / 1e3 if b else None
     return RooflineReport(
         wall_s=wall,

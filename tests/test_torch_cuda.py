@@ -1068,3 +1068,124 @@ def test_segment_batch_registers_what_each_segment_registers_alone(segments16):
         one, reg = build_submap(sk[s], sd[s], sm[s], K, gen, cfg)
         assert torch.equal(reg, regs[s]), s
         assert int(one.num_cams) == int(states.num_cams[s]), s
+
+
+# -- the probes' tensor-core kernels (P1-P4) ----------------------------------
+
+def _check_probe_match(q, t, t2):
+    """P1 and P2 against their plain versions: P1 within 1e-5; P2's indices
+    equal off the rows where plain's competing keys lie within 2 quanta,
+    dist within a quantum + 1e-5 there and 2 quanta + 1e-5 everywhere."""
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+
+    before = (pm.gemm_rowmin.launches, pm.packed_top2.launches)
+    km = pm.gemm_rowmin(q, t)
+    kd, ki = pm.packed_top2(q, t, t2)
+    assert (pm.gemm_rowmin.launches, pm.packed_top2.launches) == (before[0] + 1, before[1] + 1)
+    pmin = pm.gemm_rowmin_plain(q, t)
+    pd, pi = pm.packed_top2_plain(q, t, t2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(km, pmin, atol=1e-5, rtol=0)
+    near = pm.near_tie_rows(q, t, t2)
+    quantum = pm.quantum(q, t2)
+    assert torch.equal(ki[~near], pi[~near])
+    err = (kd - pd).abs()
+    err = torch.where(kd.isnan() & pd.isnan(), 0.0, err)   # no runner-up (N2 = 1)
+    if bool((~near).any()):
+        assert float(err[~near].max()) <= quantum + 1e-5
+    assert float(err.max()) <= 2 * quantum + 1e-5
+    return km, kd, ki
+
+
+# (64, 512, 512, 64): the probes' shape; one pair (32 train splits and the
+# merge kernel); ragged shapes that are no multiple of a tile; D = 32, 48,
+# 100 and 128 (k-steps of 16, zero-filled past D), and D = 37 (rows loaded
+# a float at a time)
+@pytest.mark.parametrize("b,n1,n2,d", [(64, 512, 512, 64), (1, 512, 512, 64), (1, 300, 300, 64),
+                                       (3, 200, 333, 48), (2, 70, 7, 64), (1, 129, 1000, 128),
+                                       (2, 64, 100, 32), (1, 33, 1, 100), (2, 50, 90, 37)])
+def test_probe_match_kernels_match_plain(dev, b, n1, n2, d):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, t = _unit(gen, b, n1, d, dev=dev), _unit(gen, b, n2, d, dev=dev)
+    m = min(n1, n2) // 2
+    t[:, :m] = q[:, :m] + 0.1 * torch.randn(b, m, d, generator=gen, device=dev)
+    t = t / t.norm(dim=-1, keepdim=True)
+    _check_probe_match(q, t, (t * t).sum(-1))
+
+
+def test_probe_match_one_pair_equals_its_batch_rows(dev):
+    """One pair (32 train splits, merged) gives its rows of the 64-pair
+    launch (no split) to the bit: the splits' merge is exact and each
+    cell's MMA chain is the same."""
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, t = _unit(gen, 64, 512, 64, dev=dev), _unit(gen, 64, 512, 64, dev=dev)
+    t2 = (t * t).sum(-1)
+    assert torch.equal(pm.gemm_rowmin(q[:1], t[:1]), pm.gemm_rowmin(q, t)[:1])
+    for a, b in zip(pm.packed_top2(q[:1], t[:1], t2[:1]), pm.packed_top2(q, t, t2)):
+        assert torch.equal(a, b[:1])
+
+
+def _probe_scene(gen, b, h, n, dev):
+    """Hypotheses around a horizontal-translation F (y2 = y1 on its inliers)
+    with perturbations from 1e-6 to 1e-2, points at pixel scale with 0.7 px
+    of noise, 5 % masked."""
+    p1 = torch.rand(b, n, 2, generator=gen, device=dev) * torch.tensor([640.0, 480.0], device=dev)
+    p2 = p1 + torch.tensor([12.0, 0.0], device=dev) \
+        + 0.7 * torch.randn(b, n, 2, generator=gen, device=dev)
+    F = torch.zeros(3, 3, device=dev)
+    F[1, 2], F[2, 1] = -1.0, 1.0
+    scale = torch.logspace(-6, -2, h, device=dev)[None, :, None, None]
+    F = F + scale * torch.randn(b, h, 3, 3, generator=gen, device=dev)
+    F = F / F.norm(dim=(-2, -1), keepdim=True)
+    mask = torch.rand(b, n, generator=gen, device=dev) > 0.05
+    return F.contiguous(), p1, p2, mask
+
+
+@pytest.mark.parametrize("gate,products", [("divide", "f32"), ("divide", "bf16x1"),
+                                           ("multiply", "bf16x3")])
+# (64, 512, 512): the probe's shape; one pair (8 point splits, atomic
+# counts); ragged hypotheses and points
+@pytest.mark.parametrize("b,h,n", [(64, 512, 512), (1, 512, 512), (1, 300, 300), (2, 100, 37),
+                                   (3, 17, 1000)])
+def test_probe_score_kernel_matches_plain(dev, gate, products, b, h, n):
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args = (*_probe_scene(gen, b, h, n, dev), 1.5)
+    before = ps.score_variant.launches
+    kc = ps.score_variant(*args, gate, products)
+    assert ps.score_variant.launches == before + 1
+    pc = ps.score_variant_plain(*args, gate, products)
+    torch.cuda.synchronize()
+    assert int(pc.max()) > n // 2                    # real inlier sets
+    if products == "f32":
+        # the plain chain in the same operation order, IEEE division: bit for bit
+        assert torch.equal(kc, pc)
+    else:
+        # the tensor core sums a cell's products in its own order
+        near = ps.near_gate_cells(*args, products=products)
+        assert bool(((kc - pc).abs() <= near).all())
+
+
+def test_probe_wrappers_raise_on_bad_inputs(dev):
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+
+    q = torch.randn(1, 10, 64, device=dev)
+    with pytest.raises(ValueError):
+        pm.gemm_rowmin(torch.randn(1, 10, 160, device=dev), torch.randn(1, 10, 160, device=dev))
+    with pytest.raises(ValueError):
+        pm.gemm_rowmin(q.transpose(1, 2).contiguous().transpose(1, 2), q)
+    with pytest.raises(ValueError):
+        pm.packed_top2(q, q, torch.ones(1, 9, device=dev))
+    with pytest.raises(TypeError):
+        pm.gemm_rowmin(q.double(), q.double())
+    F = torch.randn(1, 4, 3, 3, device=dev)
+    p = torch.randn(1, 5, 2, device=dev)
+    m = torch.ones(1, 5, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):               # the multiply gate in fp32 is K2
+        ps.score_variant(F, p, p, m, 1.0, "multiply", "f32")
+    with pytest.raises(ValueError):
+        ps.score_variant(F, p.cpu(), p, m, 1.0)

@@ -1946,15 +1946,18 @@ def _probes(dev, K_mod, q, t, F, p1, p2, pmask, launch_floor) -> dict:
     (``examples/probe_match_variants_torch.py``, ``probe_score_variants_torch.py``)
     through every variant at their full shapes, the launch counters set to
     0 just before and read just after (``launches_by_path.probe``).  Then
-    each probe kernel against its plain version at 64 pairs and at one pair
-    — P1 (``gemm_rowmin``) within 1e-5; P2 (``packed_top2``) with indices
-    equal off the rows whose competing keys lie within 2 quanta and dist
-    within 2 quanta + 1e-5; the score instances (divide, fp32) equal
-    bit for bit and (divide, bf16 × 1), (multiply, bf16 × 3) off by no more
-    than their cells at the gate — with kernel times (CUDA-graph
-    replays), plain times (CUDA events), bounds and the library yardsticks:
-    ``torch.matmul`` + ``amin`` on the same bf16 operands beside P1,
-    ``baddbmm`` + ``topk`` beside P2 (two calls each)."""
+    each probe kernel, in each of its designs (``warp``: mma.sync;
+    ``warpgroup``: wgmma; the host picks one by the launch's size), against
+    its plain version at 64 pairs and at one pair — P1 (``gemm_rowmin``)
+    within 1e-5; P2 (``packed_top2``) with indices equal off the rows whose
+    competing keys lie within 2 quanta and dist within 2 quanta + 1e-5; the
+    score instances (divide, fp32) equal bit for bit and (divide, bf16 × 1),
+    (multiply, bf16 × 3) off by no more than their cells at the gate — with
+    kernel times (CUDA-graph replays) of the host's pick and of each design
+    forced, plain times (CUDA events), bounds, the launch floor and the
+    library yardsticks: ``torch.matmul`` + ``amin`` on the same bf16
+    operands beside P1, ``baddbmm`` + ``topk`` beside P2 (two calls
+    each)."""
     import torch
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
@@ -1984,37 +1987,56 @@ def _probes(dev, K_mod, q, t, F, p1, p2, pmask, launch_floor) -> dict:
         pms = cuda_event_ms(lambda: plain(*args, **kw))
         b = _bound_of(kernel, *args, **kw)
         print(f"probes {tag}: {ms:.5f} ms vs plain {pms:.5f} ms, bound {b['bound_ms']:.5f} ms "
-              f"({b['bound_by']}, {b['bound_unit']})")
+              f"({b['bound_by']}, {b['bound_unit']}), launch floor {launch_floor:.5f} ms")
         return dict(ms=ms, plain_ms=pms, **b)
+
+    def by_design(tag, kernel, args, designs, **kw):
+        """each design's time, forced; the host's pick (read after a
+        launch the host chose) beside them"""
+        ms = {d: cuda_graph_ms(lambda d=d: kernel(*args, _design=d, **kw)) for d in designs}
+        kernel(*args, **kw)
+        print(f"probes {tag}: by design " + ", ".join(f"{d} {t:.5f} ms" for d, t in ms.items())
+              + f"; the host picks {kernel.last_design}")
+        return dict(design=kernel.last_design, ms_by_design=ms)
 
     def merge(batched, one, err, library, calls):
         (lib, lib1) = library
         return dict(max_abs_err=err, **batched, library_ms=lib, library_calls=calls,
                     ms_one_pair=one["ms"], bound_ms_one_pair=one["bound_ms"],
                     plain_ms_one_pair=one["plain_ms"], library_ms_one_pair=lib1,
-                    launch_floor_ms=launch_floor)
+                    launch_floor_ms=launch_floor, design_one_pair=one["design"],
+                    ms_by_design_one_pair=one["ms_by_design"])
 
     B = q.shape[0]
     t2 = (t * t).sum(-1)
     out, times, errs, lib = {}, {}, {}, {}
     for nb in (B, 1):
         a, b, c = q[:nb], t[:nb], t2[:nb]
-        km, pmin = pm.gemm_rowmin(a, b), pm.gemm_rowmin_plain(a, b)
-        (kd, ki), (pd, pi) = pm.packed_top2(a, b, c), pm.packed_top2_plain(a, b, c)
+        pmin = pm.gemm_rowmin_plain(a, b)
+        pd, pi = pm.packed_top2_plain(a, b, c)
         near = pm.near_tie_rows(a, b, c)
         quantum = pm.quantum(a, c)
-        torch.cuda.synchronize()
-        e1 = float((km - pmin).abs().max())
-        e2 = float((kd - pd).abs().max())
-        bad = int((ki != pi)[~near].any(-1).sum())
-        print(f"probes P1 x{nb}: max |err| {e1:.3g} (tol 1e-05); P2 x{nb}: max |dist err| "
-              f"{e2:.3g} (tol 2 quanta + 1e-05 = {2 * quantum + 1e-5:.3g}), index mismatches "
-              f"off the {int(near.sum())} rows within 2 quanta: {bad}")
-        _check(e1 <= 1e-5, f"P1 x{nb} disagrees with plain")
-        _check(e2 <= 2 * quantum + 1e-5 and bad == 0, f"P2 x{nb} disagrees with plain")
+        e1 = e2 = 0.0
+        # each design, and the host's pick (one of them), against plain
+        for design in pm.DESIGNS:
+            km = pm.gemm_rowmin(a, b, _design=design)
+            kd, ki = pm.packed_top2(a, b, c, _design=design)
+            torch.cuda.synchronize()
+            d1 = float((km - pmin).abs().max())
+            d2 = float((kd - pd).abs().max())
+            bad = int((ki != pi)[~near].any(-1).sum())
+            print(f"probes P1 x{nb} ({design}): max |err| {d1:.3g} (tol 1e-05); P2 x{nb} "
+                  f"({design}): max |dist err| {d2:.3g} (tol 2 quanta + 1e-05 = "
+                  f"{2 * quantum + 1e-5:.3g}), index mismatches off the {int(near.sum())} rows "
+                  f"within 2 quanta: {bad}")
+            _check(d1 <= 1e-5, f"P1 x{nb} ({design}) disagrees with plain")
+            _check(d2 <= 2 * quantum + 1e-5 and bad == 0, f"P2 x{nb} ({design}) disagrees with plain")
+            e1, e2 = max(e1, d1), max(e2, d2)
         errs[nb] = (e1, e2)
-        times[nb] = (timed(f"P1 x{nb}", pm.gemm_rowmin, pm.gemm_rowmin_plain, (a, b)),
-                     timed(f"P2 x{nb}", pm.packed_top2, pm.packed_top2_plain, (a, b, c)))
+        times[nb] = (dict(timed(f"P1 x{nb}", pm.gemm_rowmin, pm.gemm_rowmin_plain, (a, b)),
+                          **by_design(f"P1 x{nb}", pm.gemm_rowmin, (a, b), pm.DESIGNS)),
+                     dict(timed(f"P2 x{nb}", pm.packed_top2, pm.packed_top2_plain, (a, b, c)),
+                          **by_design(f"P2 x{nb}", pm.packed_top2, (a, b, c), pm.DESIGNS)))
         qb, tbT = a.to(torch.bfloat16), b.to(torch.bfloat16).transpose(-1, -2).contiguous()
         cb = c.to(torch.bfloat16)[:, None, :]
         lib[nb] = (cuda_graph_ms(lambda: torch.matmul(qb, tbT).amin(-1)),
@@ -2031,27 +2053,33 @@ def _probes(dev, K_mod, q, t, F, p1, p2, pmask, launch_floor) -> dict:
     instances = {}
     for gate, products in ps.VARIANTS:
         tag = f"{gate}/{products}"
+        designs = ("warp",) if products == "f32" else ps.DESIGNS
         res, diffs = {}, []
         for nb in (B, 1):
             args = (F[:nb], p1[:nb], p2[:nb], pmask[:nb], 1.5)
-            kc = ps.score_variant(*args, gate, products)
             pc = ps.score_variant_plain(*args, gate, products)
             near = ps.near_gate_cells(*args, products=products)
-            torch.cuda.synchronize()
-            diff = int((kc - pc).abs().max())
-            beyond = int(((kc - pc).abs() - near).clamp_min(0).sum())
-            print(f"probes score {tag} x{nb}: max |count diff| {diff}, beyond the "
-                  f"{int(near.sum())} cells at the gate {beyond}, max count {int(kc.max())}")
-            if products == "f32":
-                _check(diff == 0, f"score {tag} x{nb} differs from plain")
-            _check(beyond == 0, f"score {tag} x{nb} differs from plain beyond the gate")
-            # one bf16 pass moves pixel coordinates by up to 2 px: its best
-            # hypothesis may keep fewer than half the points
-            _check(products == "bf16x1" or int(kc.max()) > p1.shape[1] // 2,
-                   f"score {tag} x{nb}: no hypothesis keeps half the points")
-            diffs.append(diff)
-            res[nb] = timed(f"score {tag} x{nb}", ps.score_variant, ps.score_variant_plain,
-                            args, gate=gate, products=products)
+            for design in designs:
+                kc = ps.score_variant(*args, gate, products, _design=design)
+                torch.cuda.synchronize()
+                diff = int((kc - pc).abs().max())
+                beyond = int(((kc - pc).abs() - near).clamp_min(0).sum())
+                print(f"probes score {tag} x{nb} ({design}): max |count diff| {diff}, beyond "
+                      f"the {int(near.sum())} cells at the gate {beyond}, max count "
+                      f"{int(kc.max())}")
+                if products == "f32":
+                    _check(diff == 0, f"score {tag} x{nb} differs from plain")
+                _check(beyond == 0, f"score {tag} x{nb} ({design}) differs from plain beyond "
+                                    "the gate")
+                # one bf16 pass moves pixel coordinates by up to 2 px: its best
+                # hypothesis may keep fewer than half the points
+                _check(products == "bf16x1" or int(kc.max()) > p1.shape[1] // 2,
+                       f"score {tag} x{nb}: no hypothesis keeps half the points")
+                diffs.append(diff)
+            res[nb] = dict(timed(f"score {tag} x{nb}", ps.score_variant, ps.score_variant_plain,
+                                 args, gate=gate, products=products),
+                           **by_design(f"score {tag} x{nb}", ps.score_variant, args, designs,
+                                       gate=gate, products=products))
         instances[tag] = merge(res[B], res[1], max(diffs), (None, None), None)
     out["score_variant"] = dict(instances["multiply/bf16x3"], instances=instances)
     out["rows"] = rows

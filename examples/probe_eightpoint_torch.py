@@ -8,8 +8,9 @@
 ``--ptxas`` compiles ``eightpoint.cu`` (from CSRC_DIR, by default the
 package's ``csrc/``) with the build's flags and ``-Xptxas -v`` into a
 temporary cubin and prints, for each kernel, what ptxas reports: registers
-a thread, spill stores and loads, stack frame and shared memory.  It needs
-``nvcc`` only, no card.
+a thread, spill stores and loads, stack frame and shared memory, and its
+warnings and notes on the kernel they name.  It needs ``nvcc`` only, no
+card.
 
 ``--groups`` times the kernel with each lane-group size G forced
 (CUDA-graph replays, 50 launches × 5) over a sweep of batch sizes, 1 to 64
@@ -82,6 +83,16 @@ def ptxas_report(csrc: str, source: str = "eightpoint.cu", sass: bool = False) -
             smem = re.search(r"(\d+) bytes smem", m.group(2))
             rows[-1].update(registers=int(m.group(1)),
                             smem=int(smem.group(1)) if smem else 0)
+    # ptxas's warnings and notes (a wgmma serialised, say), on the kernels they name
+    notes = [ln.strip() for ln in proc.stderr.splitlines()
+             if "warning" in ln.lower() or "Performance" in ln]
+    for line in notes:
+        owners = [row for row in rows if row["kernel"] in line]
+        if not owners:
+            rows.append(dict(kernel="(unnamed)"))
+            owners = rows[-1:]
+        for row in owners:
+            row.setdefault("notes", []).append(line)
     if sass:
         opcodes, name = {}, None
         for line in dump.splitlines():

@@ -26,6 +26,23 @@ The ``prod_thN`` variants time the production kernel at a tile: that is
 
     python examples/probe_score_variants_torch.py [variant ...]
     (default: prod nodiv def_prec stacked stack3 split3, as the TPU probe)
+    python examples/probe_score_variants_torch.py --ptxas [CSRC_DIR] [--sass] --parent CSRC_DIR
+
+``--ptxas`` compiles ``probe_score.cu`` (from CSRC_DIR, by default the
+package's ``csrc/``) with the build's flags and ``-Xptxas -v`` and prints,
+for each kernel instance, its registers a thread, spill stores and loads,
+stack frame, shared memory and ptxas's notes, with ``--sass`` also its SASS
+opcodes by count (``nvcc`` only, no card).
+``--parent CSRC_DIR`` builds an earlier tree's ``probe_score.cu`` into a
+library of its own and times each of the three instances in turns with
+each design of this tree's (parent, warp, warpgroup, warpgroup, warp,
+parent; CUDA-graph replays; the fp32 instance has the warp design only) at
+64 down to 1 pairs of the probe's shape, beside the design the host picks
+(``probe_score.design``), the bound and the launch floor, each run held to
+the plain version (cells beyond the gate 0; the fp32 instance bit for bit).
+The earlier tree is launched with its own tile: 64 hypotheses a block and
+at least 64 points a split (``PARENT_HYPS_PER_BLOCK``,
+``PARENT_MIN_SPLIT_POINTS``).  Either option alone runs no variant.
 
 Prints the card's name and power limit, then one JSON line per variant:
 {variant, function, pairs_per_sec, us_per_pair, ms_per_step, max_count_dev,
@@ -41,6 +58,8 @@ CUDA device.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import itertools
 import json
 import os
@@ -64,6 +83,7 @@ FUNCTIONS = {
     "ostack3": ("multiply", "bf16x3"),
 }
 DEFAULT = ("prod", "nodiv", "def_prec", "stacked", "stack3", "split3")
+PARENT_HYPS_PER_BLOCK, PARENT_MIN_SPLIT_POINTS = 64, 64
 
 
 def make_inputs(dev, pool: int = POOL):
@@ -145,18 +165,108 @@ def run(variants=DEFAULT, dev=None, pool: int = POOL) -> list:
     return rows
 
 
+def parent_kernel(csrc: str):
+    """The earlier tree's score kernel as a callable (F, p1, p2, mask, τ,
+    gate, products) → counts, launched with its own tile."""
+    import torch
+
+    from probe_match_variants_torch import parent_library
+    from points_matching_tpu_torch.ops.kernels import _build
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+
+    fn = parent_library(csrc, "probe_score.cu").pmt_probe_score
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                               ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def score(F, p1, p2, mask, tau, gate, products):
+        (B, H), N = F.shape[:2], p1.shape[1]
+        S = _build.train_splits(B, -(-H // PARENT_HYPS_PER_BLOCK), N,
+                                _build.sm_count(F.device.index), PARENT_MIN_SPLIT_POINTS)
+        counts = (torch.zeros if S > 1 else torch.empty)((B, H), dtype=torch.int32,
+                                                         device=F.device)
+        rc = fn(F.data_ptr(), p1.data_ptr(), p2.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+                B, H, N, S, tau ** 2, ps.GATES[gate], ps.PRODUCTS[products],
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent pmt_probe_score: CUDA error {rc}")
+        return counts
+
+    return score
+
+
+def parent_turns(csrc: str, dev=None) -> list:
+    """This tree's score instances, each design forced, against the earlier
+    tree's in turns at ``PARENT_PAIRS`` pairs of the probe's shape (the
+    first batch of the pool); one dict an (instance, pairs), printed as a
+    JSON line."""
+    import torch
+
+    from probe_match_variants_torch import PARENT_PAIRS, in_turns, launch_floor_ms, turns_row
+    from points_matching_tpu_torch.core.device import pin_fp32
+    from points_matching_tpu_torch.ops.kernels import _build
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+    from points_matching_tpu_torch.ops.kernels.work import bound
+    from points_matching_tpu_torch.utils.profiling import chip_peaks
+
+    pin_fp32()
+    dev = dev or torch.device("cuda")
+    parent = parent_kernel(csrc)
+    pF, pp1, pp2 = make_inputs(dev, 1)
+    floor, peaks, rows = launch_floor_ms(), chip_peaks("cuda"), []
+    for nb in PARENT_PAIRS:
+        args = (pF[0, :nb], pp1[0, :nb], pp2[0, :nb],
+                torch.ones(nb, NKP, dtype=torch.bool, device=dev), TAU)
+        for gate, products in ps.VARIANTS:
+            want = ps.score_variant_plain(*args, gate, products)
+            near = ps.near_gate_cells(*args[:4], TAU, products=products)
+            runs = {"parent": lambda: parent(*args, gate, products)}
+            designs = ("warp",) if products == "f32" else ps.DESIGNS
+            runs.update({d: (lambda d=d: ps.score_variant(*args, gate, products, _design=d))
+                         for d in designs})
+            beyond = {}
+            for who, fn in runs.items():
+                diff = (fn() - want).abs()
+                beyond[who] = int((diff if products == "f32" else
+                                   (diff - near).clamp_min(0)).sum())
+            pick = ps.design(nb, HYP, products, _build.sm_count(0))
+            bnd = bound(ps.score_variant.work(*args, gate, products), peaks)
+            row = dict(instance=f"{gate}/{products}", pairs=nb,
+                       **turns_row(in_turns(runs), pick, bnd, floor), cells_off=beyond,
+                       ok=not any(beyond.values()))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     from probe_match_variants_torch import card
 
-    variants = (sys.argv[1:] if argv is None else argv) or list(DEFAULT)
-    unknown = [v for v in variants if v not in FUNCTIONS and not v.startswith("prod_th")]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("variants", nargs="*", metavar="variant")
+    ap.add_argument("--ptxas", nargs="?", const=os.path.join(
+        ROOT, "points_matching_tpu_torch", "csrc"), metavar="CSRC_DIR")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--parent", metavar="CSRC_DIR")
+    args = ap.parse_args(argv)
+    unknown = [v for v in args.variants if v not in FUNCTIONS and not v.startswith("prod_th")]
     if unknown:
         print(f"unknown variants {unknown}; known: {sorted(FUNCTIONS)} and prod_thN",
               file=sys.stderr)
         return 2
+    variants = args.variants or ([] if args.parent or args.ptxas else list(DEFAULT))
+    if args.ptxas:
+        from probe_eightpoint_torch import ptxas_report
+
+        for row in ptxas_report(args.ptxas, "probe_score.cu", sass=args.sass):
+            print("ptxas", json.dumps(row), flush=True)
+    if not (args.parent or variants):
+        return 0
     print(card(), flush=True)
-    rows = run(variants)
-    return 0 if all(r["cells_beyond_gate"] == 0 for r in rows) else 1
+    ok = all(r["ok"] for r in parent_turns(args.parent)) if args.parent else True
+    if variants:
+        ok &= all(r["cells_beyond_gate"] == 0 for r in run(variants))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

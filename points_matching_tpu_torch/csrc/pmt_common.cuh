@@ -39,6 +39,162 @@ __device__ __forceinline__ void pmt_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ uint32_t pmt_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarrier: a barrier in shared memory that completes a phase once its
+// expected arrivals have come and the bytes an arrival announced
+// (expect-tx) have landed.  Waits name the parity of the phase they wait
+// for: a fresh barrier is in phase 0, and a wait on parity 1 passes at once.
+__device__ __forceinline__ void pmt_mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(pmt_smem_addr(bar)),
+               "r"(count));
+}
+
+// make the initialised barriers visible to the async proxy (bulk copies)
+__device__ __forceinline__ void pmt_mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pmt_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(pmt_smem_addr(bar))
+               : "memory");
+}
+
+// arrive, and announce `bytes` that bulk copies will complete on this barrier
+__device__ __forceinline__ void pmt_mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   pmt_smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool pmt_mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(pmt_smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void pmt_mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!pmt_mbar_try_wait(bar, parity)) {
+  }
+}
+
+// -- cp.async.bulk: `bytes` (a multiple of 16, from a 16-byte aligned
+// address to one) from device to shared memory by the copy engine,
+// completing on `bar` (which an arrive-expect-tx told to wait for them)
+__device__ __forceinline__ void pmt_bulk_copy_g2s(void* smem, const void* gmem, uint32_t bytes,
+                                                  uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          pmt_smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(pmt_smem_addr(bar))
+      : "memory");
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (wgmma's operand fetch)
+__device__ __forceinline__ void pmt_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// this thread's warp index, as a value the compiler knows to be the same
+// across the warp (a role branch on it is not divergent, which would
+// otherwise serialise the wgmma instructions behind it)
+__device__ __forceinline__ int pmt_warp_uniform(int warp) {
+  return __shfl_sync(0xffffffffu, warp, 0);
+}
+
+// a named barrier over `threads` threads (a warpgroup: 128), id 1..15
+__device__ __forceinline__ void pmt_named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- wgmma: a warpgroup's (4 warps, 128 threads) asynchronous tensor-core
+// product.  fence before the first wgmma that reads registers or shared
+// memory written since; commit closes a group; wait<N> returns once at most
+// N groups are in flight.
+__device__ __forceinline__ void pmt_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pmt_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pmt_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the wgmma instructions that write it asynchronously: before the fence
+// that starts them and after the wait that ends them
+template <int N>
+__device__ __forceinline__ void pmt_fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The shared-memory matrix descriptor of a wgmma operand: start address,
+// leading and stride byte offsets (16-byte units) and the layout
+// (0 none, 1 128-byte swizzle, 2 64-byte, 3 32-byte).  For a K-major
+// operand, SBO is the distance between groups of 8 rows; LBO the distance
+// between the two 16-byte k-chunks of a k16 step without a swizzle (with
+// one, the k16 step lies inside a row of the swizzle atom and LBO is unused).
+__device__ __forceinline__ uint64_t pmt_wgmma_desc(const void* smem, uint32_t lbo_bytes,
+                                                   uint32_t sbo_bytes, uint32_t layout) {
+  const uint64_t a = pmt_smem_addr(smem);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// D[64 × N] (+)= A[64 × 16] · B[16 × N], bf16 operands, fp32 accumulators:
+// A from registers (the m16n8k16 fragment of each warp's 16 rows), B from
+// shared memory, K-major (descriptor).  scale_d = 0 overwrites D.
+// Accumulator i of a thread: row 16·warp + lane/4 + 8·((i/2) % 2), column
+// 8·(i/4) + 2·(lane % 4) + i % 2.
+__device__ __forceinline__ void pmt_wgmma_m64n16(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void pmt_wgmma_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// the m64nNk16 above by its N
+template <int N>
+__device__ __forceinline__ void pmt_wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  static_assert(N == 16 || N == 32, "wgmma N built: 16, 32");
+  if constexpr (N == 16) pmt_wgmma_m64n16(d, a, desc, scale_d);
+  else pmt_wgmma_m64n32(d, a, desc, scale_d);
+}
+
 // -- top-2 under the lexicographic order of (distance, column) ------------
 // The matchers' contract (K1, K4): column 0 is the lowest index at the
 // minimum, column 1 the lowest other index at the runner-up, and with fewer

@@ -49,12 +49,12 @@ _SIGNATURES: Dict[str, list] = {
     "pmt_eight_point": [_P] * 3 + [_I, _I, _P],
     # q, t, t_mask, dist, idx, part, B, N1, N2, W, S, stream
     "pmt_hamming_top2": [_P] * 6 + [_I] * 5 + [_P],
-    # q, t, out, part, B, N1, N2, D, S, stream
-    "pmt_probe_gemm_rowmin": [_P] * 4 + [_I] * 5 + [_P],
-    # q, t, t2, dist, idx, part, q2, B, N1, N2, D, S, stream
-    "pmt_probe_packed_top2": [_P] * 7 + [_I] * 5 + [_P],
-    # F, p1, p2, mask, counts, B, H, N, S, tau2, gate, products, stream
-    "pmt_probe_score": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # q, t, out, part, B, N1, N2, D, S, design, stream
+    "pmt_probe_gemm_rowmin": [_P] * 4 + [_I] * 6 + [_P],
+    # q, t, t2, dist, idx, part, q2, B, N1, N2, D, S, design, stream
+    "pmt_probe_packed_top2": [_P] * 7 + [_I] * 6 + [_P],
+    # F, p1, p2, mask, counts, B, H, N, S, tau2, gate, products, design, stream
+    "pmt_probe_score": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
 }
 
 last_build: Dict[str, object] = {}
@@ -192,6 +192,19 @@ def train_splits(pairs: int, query_tiles: int, n_train: int, num_sms: int,
     if blocks == 0 or blocks >= num_sms:
         return 1
     return max(1, min(-(-num_sms // blocks), n_train // min_cols))
+
+
+def one_wave_splits(blocks: int, n_axis: int, num_sms: int, min_per_split: int) -> int:
+    """How many blocks share one block's loop axis (train rows, points) in
+    the probes' wgmma kernels, which run one block an SM: the most splits
+    that keep ``blocks`` × splits within one wave of ``num_sms`` blocks,
+    with at least ``min_per_split`` items a split; 1 where ``blocks`` alone
+    fill a wave or more.  A second, partial wave would cost a whole block's
+    time; fewer splits leave SMs idle.  The splits' partials combine
+    exactly, so the count changes no result."""
+    if blocks <= 0:
+        return 1
+    return max(1, min(num_sms // blocks, n_axis // min_per_split))
 
 
 # K3 gives each sample 8 lanes while the batch holds at most this many

@@ -4,9 +4,15 @@ Replace the TPU kernels of ``benchmarks/probe/match_variants.py``:
 ``gemm_only`` (P1: the row minimum of a bf16 q·tᵀ, a raw dot product with
 no mask) and ``packed_top2`` (P2: the L2 top-2 from a bf16 q·tᵀ with the
 distance and the column packed into one int32 key).  CUDA source:
-``points_matching_tpu_torch/csrc/probe_match.cu``: ``mma.sync`` bf16 tiles
-with fp32 accumulation, a block a tile of 128 query rows of one pair looping
-over its split of the train rows, and the epilogue in registers; see there.
+``points_matching_tpu_torch/csrc/probe_match.cu``, in two designs that the
+host picks between by the launch's size (``design``): ``warpgroup`` —
+Hopper's warpgroup tensor cores (``wgmma``), a block 256 query rows of one
+pair looping over its split of the train rows, which a producer warp
+streams through a ring of bulk async copies, the epilogue overlapping the
+next step's products — where the launch fills the card; and ``warp`` — the
+warp-level ``mma.sync`` kernel with 128-row blocks — on small launches,
+where its shorter blocks win.  Both: bf16 operands, fp32 accumulation, the
+epilogue in registers; see there.
 Neither kernel is on a path of the package.  They measure what K1 in bf16
 would cost on the tensor cores (``examples/probe_match_variants_torch.py``
 and ``chip_smoke.py``'s ``probes`` phase); the production matcher's
@@ -31,8 +37,15 @@ from points_matching_tpu_torch.ops.kernels import work as _work
 from points_matching_tpu_torch.utils.sanitize import check_finite, check_index
 
 Tensor = torch.Tensor
-ROWS_PER_BLOCK = 128    # query rows of a block: kRows in probe_match.cu
-MIN_SPLIT_COLS = 16     # train columns a split keeps at least
+DESIGNS = ("warp", "warpgroup")                    # the C entries' `design` argument
+ROWS_PER_BLOCK = {"warp": 128, "warpgroup": 256}   # mma::kRows, tc::kRows in probe_match.cu
+MIN_SPLIT_COLS = {"warp": 16, "warpgroup": 8}      # train columns a split keeps at least
+# the warpgroup design from this many of its blocks (pairs × 256-row tiles)
+# an SM: on the H100, in turns with the warp design from 1 to 64 pairs of
+# 512 × 512 × 64 (examples/probe_match_variants_torch.py --parent, PERF.md),
+# P1 was faster from 16 pairs (0.24 blocks an SM) and P2, whose epilogue the
+# products overlap, from 8 (0.12)
+WARPGROUP_MIN_BLOCKS_PER_SM = {"gemm_rowmin": 0.2, "packed_top2": 0.1}
 MAX_DIM = 128           # widest row the kernels stage (k-steps of 16, up to 8)
 KEY_SENTINEL = 0x7FFFFFFF
 
@@ -119,9 +132,44 @@ def quantum(q: Tensor, t2: Tensor) -> float:
     return 2.0 ** (idx_bits(t2.shape[-1]) + math.frexp(d_max)[1] - 24)
 
 
-def _splits(B: int, N1: int, N2: int, device) -> int:
-    return _build.train_splits(B, -(-N1 // ROWS_PER_BLOCK), -(-N2 // 8) * 8,
-                               _build.sm_count(device.index), MIN_SPLIT_COLS)
+def design(kernel: str, B: int, N1: int, num_sms: int) -> str:
+    """The design of ``kernel`` (``gemm_rowmin`` or ``packed_top2``) for B
+    pairs of N1 query rows: ``warpgroup`` once its 256-row blocks are at
+    least ``WARPGROUP_MIN_BLOCKS_PER_SM[kernel]`` an SM (the card then
+    streams train tiles, where the ring and the overlap of products and
+    epilogue win), else ``warp`` (a launch of a few blocks is latency, where
+    the shorter blocks win).  Both designs give the same results up to the
+    order of a cell's sum."""
+    blocks = B * -(-N1 // ROWS_PER_BLOCK["warpgroup"])
+    return ("warpgroup" if blocks >= WARPGROUP_MIN_BLOCKS_PER_SM[kernel] * num_sms
+            else "warp")
+
+
+def splits(design: str, B: int, N1: int, N2: int, num_sms: int) -> int:
+    """Train splits S of a launch: the warp design as K1's (its blocks run
+    several an SM), the warpgroup design one block an SM, so the most
+    splits that keep the launch within one wave."""
+    tiles, cols = -(-N1 // ROWS_PER_BLOCK[design]), -(-N2 // 8) * 8
+    if design == "warp":
+        return _build.train_splits(B, tiles, cols, num_sms, MIN_SPLIT_COLS[design])
+    return _build.one_wave_splits(B * tiles, cols, num_sms, MIN_SPLIT_COLS[design])
+
+
+def _plan(fn, q: Tensor, t: Tensor, forced):
+    """(design, S) of a launch, the design recorded on the wrapper.  The
+    warp design loads rows 16 bytes at a time when D % 4 = 0, so such rows
+    off 16 bytes take the warpgroup design, which copies them with plain
+    loads."""
+    (B, N1, D), N2 = q.shape, t.shape[1]
+    sms = _build.sm_count(q.device.index)
+    unaligned = D % 4 == 0 and (q.data_ptr() % 16 or t.data_ptr() % 16)
+    d = forced or ("warpgroup" if unaligned else design(fn.__name__, B, N1, sms))
+    if d not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {d!r}")
+    if d == "warp" and unaligned:
+        raise ValueError("the warp design needs 16-byte aligned q and t")
+    fn.last_design = d
+    return d, splits(d, B, N1, N2, sms)
 
 
 def _prepare(q: Tensor, t: Tensor, t2=None):
@@ -129,16 +177,15 @@ def _prepare(q: Tensor, t: Tensor, t2=None):
         raise ValueError("the CUDA kernel needs contiguous inputs")
     if q.shape[2] > MAX_DIM:
         raise ValueError(f"the CUDA kernel takes D ≤ {MAX_DIM}, got {q.shape[2]}")
-    if q.shape[2] % 4 == 0 and (q.data_ptr() % 16 or t.data_ptr() % 16):
-        raise ValueError("the CUDA kernel needs 16-byte aligned q and t")
     return _build.library()
 
 
-def gemm_rowmin(q: Tensor, t: Tensor) -> Tensor:
+def gemm_rowmin(q: Tensor, t: Tensor, _design=None) -> Tensor:
     """P1: the row minima of bf16(q)·bf16(t)ᵀ, fp32-accumulated.
 
     Args: q [B, N1, D], t [B, N2, D] float32 (D ≤ 128 on the card).
-    Returns [B, N1, 1] float32.
+    Returns [B, N1, 1] float32.  ``_design`` forces a kernel design (card
+    tests, probes).
     """
     _check_inputs(q, t)
     if q.device.type == "cpu":
@@ -147,13 +194,13 @@ def gemm_rowmin(q: Tensor, t: Tensor) -> Tensor:
         lib = _prepare(q, t)
         B, N1, D = q.shape
         N2 = t.shape[1]
-        S = _splits(B, N1, N2, q.device)
+        d, S = _plan(gemm_rowmin, q, t, _design)
         out = torch.empty((B, N1, 1), dtype=torch.float32, device=q.device)
         part = torch.empty((B, S, N1), dtype=torch.float32, device=q.device) if S > 1 else None
         with torch.cuda.device(q.device):
             rc = lib.pmt_probe_gemm_rowmin(
                 q.data_ptr(), t.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(), B, N1, N2, D, S,
+                None if part is None else part.data_ptr(), B, N1, N2, D, S, DESIGNS.index(d),
                 torch.cuda.current_stream().cuda_stream)
         _build.check(lib, rc, "pmt_probe_gemm_rowmin")
         gemm_rowmin.launches += 1
@@ -163,12 +210,13 @@ def gemm_rowmin(q: Tensor, t: Tensor) -> Tensor:
     return out
 
 
-def packed_top2(q: Tensor, t: Tensor, t2: Tensor) -> Tuple[Tensor, Tensor]:
+def packed_top2(q: Tensor, t: Tensor, t2: Tensor, _design=None) -> Tuple[Tensor, Tensor]:
     """P2: the packed-key L2 top-2 of bf16(q)·bf16(t)ᵀ.
 
     Args: q [B, N1, D], t [B, N2, D] float32 (D ≤ 128 on the card), t2
       [B, N2] float32 (‖t_j‖², as the JAX probe passes it).
-    Returns (dist [B, N1, 2] float32, idx [B, N1, 2] int32).
+    Returns (dist [B, N1, 2] float32, idx [B, N1, 2] int32).  ``_design``
+    forces a kernel design (card tests, probes).
     """
     _check_inputs(q, t, t2)
     if q.device.type == "cpu":
@@ -177,7 +225,7 @@ def packed_top2(q: Tensor, t: Tensor, t2: Tensor) -> Tuple[Tensor, Tensor]:
         lib = _prepare(q, t, t2)
         B, N1, D = q.shape
         N2 = t.shape[1]
-        S = _splits(B, N1, N2, q.device)
+        d, S = _plan(packed_top2, q, t, _design)
         dist = torch.empty((B, N1, 2), dtype=torch.float32, device=q.device)
         idx = torch.empty((B, N1, 2), dtype=torch.int32, device=q.device)
         part = q2 = None
@@ -188,7 +236,7 @@ def packed_top2(q: Tensor, t: Tensor, t2: Tensor) -> Tuple[Tensor, Tensor]:
             rc = lib.pmt_probe_packed_top2(
                 q.data_ptr(), t.data_ptr(), t2.data_ptr(), dist.data_ptr(), idx.data_ptr(),
                 None if part is None else part.data_ptr(),
-                None if q2 is None else q2.data_ptr(), B, N1, N2, D, S,
+                None if q2 is None else q2.data_ptr(), B, N1, N2, D, S, DESIGNS.index(d),
                 torch.cuda.current_stream().cuda_stream)
         _build.check(lib, rc, "pmt_probe_packed_top2")
         packed_top2.launches += 1
@@ -200,5 +248,6 @@ def packed_top2(q: Tensor, t: Tensor, t2: Tensor) -> Tuple[Tensor, Tensor]:
 
 gemm_rowmin.launches = 0
 packed_top2.launches = 0
+gemm_rowmin.last_design = packed_top2.last_design = None
 gemm_rowmin.work = _work.probe_gemm_rowmin_work
 packed_top2.work = _work.probe_packed_top2_work

@@ -14,11 +14,15 @@ compute four functions of (gate, products):
 | ``def_prec`` | divide | one bf16 pass | ``("divide", "bf16x1")`` |
 | ``split3``, ``stack3``, ``ostack3`` | multiply | 3-term bf16 split | ``("multiply", "bf16x3")`` |
 
-CUDA source: ``points_matching_tpu_torch/csrc/probe_score.cu``, one kernel
-templated on the gate and the products: the fp32 instance on the CUDA cores
-in the plain version's operation order (its counts equal plain bit for
-bit), the bf16 ones with the five products of a cell on the tensor cores
-(``mma.sync`` m16n8k16) and the gate in fp32.  Not on a path of the
+CUDA source: ``points_matching_tpu_torch/csrc/probe_score.cu``, in two
+designs that the host picks between (``design``): ``warp`` — the fp32
+instance on the CUDA cores in the plain version's operation order (its
+counts equal plain bit for bit), the bf16 ones on the warp-level tensor
+cores (``mma.sync``), 64 hypotheses a block — and, for the bf16 instances
+on launches of at most one block an SM, ``warpgroup`` — Hopper's warpgroup
+tensor cores (``wgmma``), 128 hypotheses a block, points staged once a
+block through an mbarrier ring, the gates overlapping the next step's
+products.  The gate runs in fp32 on the CUDA cores.  Not on a path of the
 package: ``examples/probe_score_variants_torch.py`` and ``chip_smoke.py``'s
 ``probes`` phase launch it, to measure what a tensor-core K2 would cost.
 """
@@ -37,8 +41,17 @@ GATES = {"divide": 0, "multiply": 1}
 PRODUCTS = {"f32": 0, "bf16x1": 1, "bf16x3": 2}
 PASSES = {"f32": 1, "bf16x1": 1, "bf16x3": 3}          # bf16 products a multiply-add
 VARIANTS = (("divide", "f32"), ("divide", "bf16x1"), ("multiply", "bf16x3"))
-HYPS_PER_BLOCK = 64     # kHypsPerBlock in probe_score.cu
-MIN_SPLIT_POINTS = 64   # points a split keeps at least
+DESIGNS = ("warp", "warpgroup")                    # the C entry's `design` argument
+# hypotheses a block (kHypsPerBlock, kTcHyps in probe_score.cu) and points
+# a split keeps at least, by design
+HYPS_PER_BLOCK = {"warp": 64, "warpgroup": 128}
+MIN_SPLIT_POINTS = {"warp": 64, "warpgroup": 32}
+# the warpgroup design up to this many of its blocks (pairs × 128
+# hypotheses) an SM: on the H100, in turns with the warp design from 1 to 64
+# pairs of 512 × 512 (examples/probe_score_variants_torch.py --parent,
+# PERF.md), (divide, bf16 × 1) was faster up to 32 pairs (0.97 blocks an
+# SM) and (multiply, bf16 × 3) up to 8 (0.24)
+WARPGROUP_MAX_BLOCKS_PER_SM = {"bf16x1": 1.0, "bf16x3": 0.25}
 
 
 def _check_inputs(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, gate: str,
@@ -153,13 +166,14 @@ def near_gate_cells(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold
 
 
 def score_variant(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: float,
-                  gate: str = "multiply", products: str = "bf16x3") -> Tensor:
+                  gate: str = "multiply", products: str = "bf16x3", _design=None) -> Tensor:
     """Per-hypothesis inlier counts of one score variant.
 
     Args:
       F_h: [B, H, 3, 3] hypotheses; p1, p2: [B, N, 2] points; mask: [B, N]
         bool validity; threshold: gate in pixels.
       gate, products: one of ``VARIANTS``.
+      _design: forces a kernel design (card tests, probes).
 
     Returns counts [B, H] int32.
     """
@@ -167,7 +181,7 @@ def score_variant(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: 
     if F_h.device.type == "cpu":
         counts = score_variant_plain(F_h, p1, p2, mask, threshold, gate, products)
     elif F_h.device.type == "cuda":
-        counts = _launch(F_h, p1, p2, mask, threshold, gate, products)
+        counts = _launch(F_h, p1, p2, mask, threshold, gate, products, _design)
         score_variant.launches += 1
     else:
         raise ValueError(f"unsupported device {F_h.device}")
@@ -175,7 +189,32 @@ def score_variant(F_h: Tensor, p1: Tensor, p2: Tensor, mask: Tensor, threshold: 
     return counts
 
 
-def _launch(F_h, p1, p2, mask, threshold, gate, products) -> Tensor:
+def design(B: int, H: int, products: str, num_sms: int) -> str:
+    """The kernel design for B pairs of H hypotheses: ``warpgroup`` for the
+    bf16 instances while their 128-hypothesis blocks are at most
+    ``WARPGROUP_MAX_BLOCKS_PER_SM[products]`` an SM (a launch of a few
+    blocks is latency, where the staged ring and the overlap of products
+    and gates win), else ``warp``, whose small blocks keep more warps an SM
+    on the gate's fp32 chain, the bound of a full card; the fp32 instance
+    is ``warp`` only."""
+    if products == "f32":
+        return "warp"
+    blocks = B * -(-H // HYPS_PER_BLOCK["warpgroup"])
+    return ("warpgroup" if blocks <= WARPGROUP_MAX_BLOCKS_PER_SM[products] * num_sms
+            else "warp")
+
+
+def splits(design: str, B: int, H: int, N: int, num_sms: int) -> int:
+    """Point splits S of a launch: the warp design as K1's train splits
+    (its small blocks run several an SM); the warpgroup design one block an
+    SM, so the most splits that keep the launch within one wave."""
+    tiles = -(-H // HYPS_PER_BLOCK[design])
+    if design == "warp":
+        return _build.train_splits(B, tiles, N, num_sms, MIN_SPLIT_POINTS[design])
+    return _build.one_wave_splits(B * tiles, N, num_sms, MIN_SPLIT_POINTS[design])
+
+
+def _launch(F_h, p1, p2, mask, threshold, gate, products, forced) -> Tensor:
     if not all(x.is_contiguous() for x in (F_h, p1, p2, mask)):
         raise ValueError("the CUDA kernel needs contiguous inputs")
     if p1.data_ptr() % 8 or p2.data_ptr() % 8:
@@ -183,8 +222,12 @@ def _launch(F_h, p1, p2, mask, threshold, gate, products) -> Tensor:
     lib = _build.library()
     B, H = F_h.shape[:2]
     N = p1.shape[1]
-    S = _build.train_splits(B, -(-H // HYPS_PER_BLOCK), N, _build.sm_count(F_h.device.index),
-                            MIN_SPLIT_POINTS)
+    sms = _build.sm_count(F_h.device.index)
+    d = forced or design(B, H, products, sms)
+    if d not in DESIGNS or (d == "warpgroup" and products == "f32"):
+        raise ValueError(f"design must be one of {DESIGNS} (warp only for f32), got {d!r}")
+    score_variant.last_design = d
+    S = splits(d, B, H, N, sms)
     # with S > 1 the splits add their counts atomically
     counts = (torch.zeros if S > 1 else torch.empty)((B, H), dtype=torch.int32,
                                                      device=F_h.device)
@@ -192,10 +235,11 @@ def _launch(F_h, p1, p2, mask, threshold, gate, products) -> Tensor:
         rc = lib.pmt_probe_score(
             F_h.data_ptr(), p1.data_ptr(), p2.data_ptr(), mask.data_ptr(), counts.data_ptr(),
             B, H, N, S, float(threshold) ** 2, GATES[gate], PRODUCTS[products],
-            torch.cuda.current_stream().cuda_stream)
+            DESIGNS.index(d), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "pmt_probe_score")
     return counts
 
 
 score_variant.launches = 0
+score_variant.last_design = None
 score_variant.work = _work.probe_score_work

@@ -1072,15 +1072,21 @@ def test_segment_batch_registers_what_each_segment_registers_alone(segments16):
 
 # -- the probes' tensor-core kernels (P1-P4) ----------------------------------
 
-def _check_probe_match(q, t, t2):
-    """P1 and P2 against their plain versions: P1 within 1e-5; P2's indices
-    equal off the rows where plain's competing keys lie within 2 quanta,
-    dist within a quantum + 1e-5 there and 2 quanta + 1e-5 everywhere."""
+PROBE_DESIGNS = ("warp", "warpgroup")     # probe_match.DESIGNS, probe_score.DESIGNS
+
+
+def _check_probe_match(q, t, t2, design=None):
+    """P1 and P2 (in ``design``, or the one the host picks) against their
+    plain versions: P1 within 1e-5; P2's indices equal off the rows where
+    plain's competing keys lie within 2 quanta, dist within a quantum +
+    1e-5 there and 2 quanta + 1e-5 everywhere."""
     from points_matching_tpu_torch.ops.kernels import probe_match as pm
 
     before = (pm.gemm_rowmin.launches, pm.packed_top2.launches)
-    km = pm.gemm_rowmin(q, t)
-    kd, ki = pm.packed_top2(q, t, t2)
+    km = pm.gemm_rowmin(q, t, _design=design)
+    kd, ki = pm.packed_top2(q, t, t2, _design=design)
+    if design:
+        assert pm.gemm_rowmin.last_design == pm.packed_top2.last_design == design
     assert (pm.gemm_rowmin.launches, pm.packed_top2.launches) == (before[0] + 1, before[1] + 1)
     pmin = pm.gemm_rowmin_plain(q, t)
     pd, pi = pm.packed_top2_plain(q, t, t2)
@@ -1101,29 +1107,95 @@ def _check_probe_match(q, t, t2):
 # merge kernel); ragged shapes that are no multiple of a tile; D = 32, 48,
 # 100 and 128 (k-steps of 16, zero-filled past D), and D = 37 (rows loaded
 # a float at a time)
+@pytest.mark.parametrize("design", PROBE_DESIGNS)
 @pytest.mark.parametrize("b,n1,n2,d", [(64, 512, 512, 64), (1, 512, 512, 64), (1, 300, 300, 64),
                                        (3, 200, 333, 48), (2, 70, 7, 64), (1, 129, 1000, 128),
                                        (2, 64, 100, 32), (1, 33, 1, 100), (2, 50, 90, 37)])
-def test_probe_match_kernels_match_plain(dev, b, n1, n2, d):
+def test_probe_match_kernels_match_plain(dev, b, n1, n2, d, design):
     gen = torch.Generator(device=dev).manual_seed(0)
     q, t = _unit(gen, b, n1, d, dev=dev), _unit(gen, b, n2, d, dev=dev)
     m = min(n1, n2) // 2
     t[:, :m] = q[:, :m] + 0.1 * torch.randn(b, m, d, generator=gen, device=dev)
     t = t / t.norm(dim=-1, keepdim=True)
-    _check_probe_match(q, t, (t * t).sum(-1))
+    _check_probe_match(q, t, (t * t).sum(-1), design)
 
 
-def test_probe_match_one_pair_equals_its_batch_rows(dev):
-    """One pair (32 train splits, merged) gives its rows of the 64-pair
-    launch (no split) to the bit: the splits' merge is exact and each
-    cell's MMA chain is the same."""
+def test_probe_match_host_design_matches_plain(dev):
+    """The design the host picks, at 64 pairs and at one pair."""
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for b in (64, 1):
+        q, t = _unit(gen, b, 512, 64, dev=dev), _unit(gen, b, 512, 64, dev=dev)
+        _check_probe_match(q, t, (t * t).sum(-1))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert pm.gemm_rowmin.last_design == pm.design("gemm_rowmin", b, 512, sms)
+        assert pm.packed_top2.last_design == pm.design("packed_top2", b, 512, sms)
+
+
+# the wgmma kernel's tiling: 1, 65 and 513 query rows (a block is two
+# warpgroups of 64) against 1, 9 and 1,000 train rows (a ring stage is 64,
+# a split whole 8-column tiles); 3 pairs, so pair offsets of t are no
+# multiple of 16 bytes at D = 37 (odd pairs) and the tiles take the ring's
+# plain-load path there
+@pytest.mark.parametrize("design", PROBE_DESIGNS)
+@pytest.mark.parametrize("n1", [1, 65, 513])
+@pytest.mark.parametrize("n2,d", [(1, 64), (9, 64), (1000, 64), (90, 37), (1000, 37)])
+def test_probe_match_kernels_ragged(dev, n1, n2, d, design):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, t = _unit(gen, 3, n1, d, dev=dev), _unit(gen, 3, n2, d, dev=dev)
+    _check_probe_match(q, t, (t * t).sum(-1), design)
+
+
+def test_probe_match_unaligned_rows_take_the_warpgroup_design(dev):
+    """q and t 4 bytes off 16 at D = 64: the host picks the warpgroup
+    design, whose ring copies such tiles with plain loads, at any batch;
+    the warp design (16-byte row loads) refuses them."""
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for b in (1, 64):
+        q, t = (torch.empty(b * 512 * 64 + 1, device=dev)[1:].view(b, 512, 64)
+                .copy_(_unit(gen, b, 512, 64, dev=dev)) for _ in range(2))
+        assert q.data_ptr() % 16 and q.is_contiguous()
+        _check_probe_match(q, t, (t * t).sum(-1))
+        assert pm.gemm_rowmin.last_design == pm.packed_top2.last_design == "warpgroup"
+        with pytest.raises(ValueError):
+            pm.gemm_rowmin(q, t, _design="warp")
+
+
+@pytest.mark.parametrize("design", PROBE_DESIGNS)
+def test_probe_match_tied_keys(dev, design):
+    """Train rows repeated (each of 40 rows 8 times): equal products, so
+    keys equal but for the column; the lower column is the best."""
+    from points_matching_tpu_torch.ops.kernels import probe_match as pm
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = _unit(gen, 2, 200, 64, dev=dev)
+    t = _unit(gen, 2, 40, 64, dev=dev).repeat_interleave(8, dim=1).contiguous()
+    t2 = (t * t).sum(-1)
+    _, _, ki = _check_probe_match(q, t, t2, design)
+    # the best and the runner-up are two copies of one row, the lower first
+    assert bool((ki[..., 0] // 8 == ki[..., 1] // 8).all())
+    assert bool((ki[..., 0] < ki[..., 1]).all())
+    _, pi = pm.packed_top2_plain(q, t, t2)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("design", PROBE_DESIGNS)
+def test_probe_match_one_pair_equals_its_batch_rows(dev, design):
+    """One pair (many train splits, merged) gives its rows of the 64-pair
+    launch (one split) to the bit, in either design: the splits' merge is
+    exact and each cell's MMA chain is the same."""
     from points_matching_tpu_torch.ops.kernels import probe_match as pm
 
     gen = torch.Generator(device=dev).manual_seed(1)
     q, t = _unit(gen, 64, 512, 64, dev=dev), _unit(gen, 64, 512, 64, dev=dev)
     t2 = (t * t).sum(-1)
-    assert torch.equal(pm.gemm_rowmin(q[:1], t[:1]), pm.gemm_rowmin(q, t)[:1])
-    for a, b in zip(pm.packed_top2(q[:1], t[:1], t2[:1]), pm.packed_top2(q, t, t2)):
+    assert torch.equal(pm.gemm_rowmin(q[:1], t[:1], _design=design),
+                       pm.gemm_rowmin(q, t, _design=design)[:1])
+    for a, b in zip(pm.packed_top2(q[:1], t[:1], t2[:1], _design=design),
+                    pm.packed_top2(q, t, t2, _design=design)):
         assert torch.equal(a, b[:1])
 
 
@@ -1143,19 +1215,25 @@ def _probe_scene(gen, b, h, n, dev):
     return F.contiguous(), p1, p2, mask
 
 
-@pytest.mark.parametrize("gate,products", [("divide", "f32"), ("divide", "bf16x1"),
-                                           ("multiply", "bf16x3")])
-# (64, 512, 512): the probe's shape; one pair (8 point splits, atomic
+# each instance in each design it is built in (the fp32 instance: warp only)
+PROBE_SCORE_CASES = [("divide", "f32", "warp"), ("divide", "bf16x1", "warp"),
+                     ("multiply", "bf16x3", "warp"), ("divide", "bf16x1", "warpgroup"),
+                     ("multiply", "bf16x3", "warpgroup")]
+
+
+@pytest.mark.parametrize("gate,products,design", PROBE_SCORE_CASES)
+# (64, 512, 512): the probe's shape; one pair (point splits, atomic
 # counts); ragged hypotheses and points
 @pytest.mark.parametrize("b,h,n", [(64, 512, 512), (1, 512, 512), (1, 300, 300), (2, 100, 37),
                                    (3, 17, 1000)])
-def test_probe_score_kernel_matches_plain(dev, gate, products, b, h, n):
+def test_probe_score_kernel_matches_plain(dev, gate, products, design, b, h, n):
     from points_matching_tpu_torch.ops.kernels import probe_score as ps
 
     gen = torch.Generator(device=dev).manual_seed(2)
     args = (*_probe_scene(gen, b, h, n, dev), 1.5)
     before = ps.score_variant.launches
-    kc = ps.score_variant(*args, gate, products)
+    kc = ps.score_variant(*args, gate, products, _design=design)
+    assert ps.score_variant.last_design == design
     assert ps.score_variant.launches == before + 1
     pc = ps.score_variant_plain(*args, gate, products)
     torch.cuda.synchronize()
@@ -1167,6 +1245,36 @@ def test_probe_score_kernel_matches_plain(dev, gate, products, b, h, n):
         # the tensor core sums a cell's products in its own order
         near = ps.near_gate_cells(*args, products=products)
         assert bool(((kc - pc).abs() <= near).all())
+
+
+# the wgmma instances' tiling: 1, 65 and 513 hypotheses (a block is two
+# warpgroups of 64) over 1, 255 and 257 points (a ring stage is 32); 3 pairs
+@pytest.mark.parametrize("gate,products,design", PROBE_SCORE_CASES)
+@pytest.mark.parametrize("h", [1, 65, 513])
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_probe_score_kernel_ragged(dev, gate, products, design, h, n):
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = (*_probe_scene(gen, 3, h, n, dev), 1.5)
+    kc = ps.score_variant(*args, gate, products, _design=design)
+    pc = ps.score_variant_plain(*args, gate, products)
+    torch.cuda.synchronize()
+    if products == "f32":
+        assert torch.equal(kc, pc)
+    else:
+        assert bool(((kc - pc).abs() <= ps.near_gate_cells(*args, products=products)).all())
+
+
+@pytest.mark.parametrize("gate,products,design", PROBE_SCORE_CASES)
+def test_probe_score_kernel_all_masked(dev, gate, products, design):
+    from points_matching_tpu_torch.ops.kernels import probe_score as ps
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    F, p1, p2, mask = _probe_scene(gen, 2, 300, 300, dev)
+    counts = ps.score_variant(F, p1, p2, torch.zeros_like(mask), 1.5, gate, products,
+                              _design=design)
+    assert torch.equal(counts, torch.zeros_like(counts))
 
 
 def test_probe_wrappers_raise_on_bad_inputs(dev):
@@ -1187,5 +1295,9 @@ def test_probe_wrappers_raise_on_bad_inputs(dev):
     m = torch.ones(1, 5, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):               # the multiply gate in fp32 is K2
         ps.score_variant(F, p, p, m, 1.0, "multiply", "f32")
+    with pytest.raises(ValueError):               # the fp32 instance has no wgmma design
+        ps.score_variant(F, p, p, m, 1.0, "divide", "f32", _design="warpgroup")
+    with pytest.raises(ValueError):
+        pm.gemm_rowmin(q, q, _design="cluster")
     with pytest.raises(ValueError):
         ps.score_variant(F, p.cpu(), p, m, 1.0)

@@ -108,15 +108,28 @@ exits non-zero before the result line:
              (``launches_by_path.loop``), and the same call on the CPU with
              the same injected RANSAC samples: equal candidates, flags and
              inlier counts, corrected poses within 1e-3.
+   segment_sum — the segmented-sum kernel (the sparse BA's and the pose
+             graph's sums, ``ops/kernels/segment_sum.py``) against its plain
+             version at its paths' shapes: the ``ba`` phase's camera and
+             landmark plans, config 4's full-length batch of 283 windowed
+             BAs, the pose graph at P = 4,541 (f64); within the kernel's
+             rounding bound of the plain version in float64, two launches
+             equal bit for bit, a batch equal
+             to each problem alone bit for bit; kernel ms (graph replays)
+             beside the plain version's, the bound, ``torch.index_add``
+             (atomics) and ``index_put_(accumulate=True)`` under
+             deterministic algorithms.
    ba      — ``bundle_adjust_sparse`` at the JAX bench's BA shape (64 cameras
-             × 16,384 landmarks × 131,072 observations): the cost must fall;
-             ms per LM iteration and peak memory.
+             × 16,384 landmarks × 131,072 observations) under ``obs_layout``
+             'auto', 'scatter', 'auto' (one path): the cost must fall; ms per
+             LM iteration of each and peak memory; the three runs must end
+             at the same bits.
    pose_graph — ``make_odometry_chain`` (laps of a circuit, noise 0.01, a
              loop edge at every revisit, every 500 poses) + ``optimize_pose_graph`` at P = 100 (dense; also on the
              CPU, poses within 1e-4) and P = 4,541 (KITTI 00's length, PCG
              of 1,000 steps; the default 100 steps reported beside it): cost
              and mean translation error must fall; ms per GN iteration, host
-             syncs, peak memory.
+             syncs, peak memory; a second run equal bit for bit.
    all_pairs — BASELINE config 1's sweep (bench.py ``bench_all_pairs``:
              1,024 × 256 × 64-d, ratio 0.8) through ``all_pairs_scores`` (the
              ring with ``mesh=None``: one step) on K1: seconds a sweep and
@@ -138,7 +151,9 @@ exits non-zero before the result line:
              segments in one batch, 44,000 landmarks) at world size 1 over
              NCCL: every segment frame registered, > 95 % of cameras
              valid, global BA cost not above its start, the same launches,
-             ATE printed, seconds by stage, peak memory.
+             ATE printed, seconds by stage, peak memory.  The world-size-1
+             stand-in and the full length each run twice: the two runs
+             must be equal in every bit (RMS gap printed).
    slam    — ``examples/slam_demo_torch.py``'s path (``pipelines/slam.py``:
              decode from disk → Hessian/SURF, 512 features → SfM → loop
              closure → ATE → checkpoint) on rendered sequences written to
@@ -156,7 +171,9 @@ exits non-zero before the result line:
 6. result  — one JSON line of the SfM, pose-graph, all-pairs, staged,
              pairs, distributed and slam numbers, one of the probes' rows,
              one of per-kernel numbers (launches by path: surf, orb, sfm,
-             loop, all_pairs, staged, pairs, distributed, slam, probe), then
+             loop, all_pairs, staged, pairs, distributed, slam, probe, ba,
+             pose_graph; the segmented sum must have launched on sfm, loop,
+             distributed, slam, ba and pose_graph), then
              the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -537,7 +554,7 @@ def _slice_sfm(dev, K_mod) -> dict:
     # three timed runs (host clock, one synchronize at the end of each), the
     # host's eager launch time just before each; the first run's launches
     # and peak memory are the path's
-    fps, disp = [], []
+    fps, disp, trajs = [], [], []
     for rep in range(3):
         disp.append(_dispatch_us(dev))
         K_mod.reset_launch_counts()
@@ -545,9 +562,11 @@ def _slice_sfm(dev, K_mod) -> dict:
         out = run(frames)
         torch.cuda.synchronize()
         fps.append(n / (time.perf_counter() - t0))
+        trajs.append(out.trajectory)
         if rep == 0:
             res, launches = out, K_mod.launch_counts()
             peak = torch.cuda.max_memory_allocated()
+    runs_equal = all(torch.equal(t_, trajs[0]) for t_ in trajs[1:])
     n_reg = sum(res.registered)
     n_lms = int(res.state.num_lms)
     ate = _ate(res, gt, n)
@@ -556,7 +575,8 @@ def _slice_sfm(dev, K_mod) -> dict:
           f"the extent {extent}); frames/s of three runs "
           + ", ".join(f"{f:.2f}" for f in fps) + " (host clock, one synchronize at the "
           "end of each); host eager launch before each "
-          + ", ".join(f"{d:.2f}" for d in disp) + " us")
+          + ", ".join(f"{d:.2f}" for d in disp) + f" us; the three trajectories equal bit "
+          f"for bit {runs_equal}")
     _check(n_reg >= n - 5, f"sfm: registered {n_reg}/{n}")
     _check(n_lms > 500, f"sfm: {n_lms} landmarks")
     _check(ate < 0.1 * extent, f"sfm: ATE {ate} over the bound")
@@ -598,7 +618,7 @@ def _slice_sfm(dev, K_mod) -> dict:
     _check(diff < 0.02 * ext_m, "sfm: GPU and CPU trajectories differ")
     return dict(launches=launches, loop=loop, registered=n_reg, landmarks=n_lms, ate=ate,
                 frame_ms=float(np.median(frame_ms)), frames_per_s=float(np.median(fps)),
-                frames_per_s_runs=fps, dispatch_us=disp, ba_ms=ba_ms,
+                frames_per_s_runs=fps, runs_equal=runs_equal, dispatch_us=disp, ba_ms=ba_ms,
                 syncs_per_frame=syncs / n, peak_bytes=peak, gpu_vs_cpu_diff=diff)
 
 
@@ -671,11 +691,15 @@ def _slice_sfm32(dev, K_mod) -> dict:
                 frames_per_s=n / wall, dispatch_us=disp, launches=launches)
 
 
-def _ba_sparse(dev) -> dict:
+def _ba_sparse(dev, K_mod) -> dict:
     """``bundle_adjust_sparse`` at the JAX bench's BA shape (bench.py:
     ``bench_ba_sparse``): 64 cameras × 16,384 landmarks × 131,072
     observations from ``make_sparse_ba_problem(seed=1)``, 10 LM iterations
-    (rtol 0) of 25 PCG steps."""
+    (rtol 0) of 25 PCG steps, under ``obs_layout`` ``'auto'``,
+    ``'scatter'``, ``'auto'`` — every layout runs the plans and the
+    segmented-sum kernel, as the reference's two layouts give the same
+    bits — with ms per LM iteration for each.  The three runs must end at
+    the same bits; the first one's launches are the path's."""
     import torch
 
     from points_matching_tpu_torch.ba.sparse import (
@@ -689,28 +713,189 @@ def _ba_sparse(dev) -> dict:
     K = CameraIntrinsics.from_matrix(prob["K"])
     state = make_sparse_ba_state(prob["poses"], prob["X"], prob["cam_idx"], prob["lm_idx"],
                                  prob["uv"], prob["obs_mask"])
-    cfg = BAConfig(max_iterations=10, rtol=0.0, pcg_iterations=25)
-    bundle_adjust_sparse(state, K, BAConfig(max_iterations=1, rtol=0.0,
-                                            pcg_iterations=25))          # warm-up
+    bundle_adjust_sparse(state, K, BAConfig(max_iterations=1, rtol=0.0,      # warm-up
+                                            pcg_iterations=25))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, st = bundle_adjust_sparse(state, K, cfg)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
+    runs = []
+    for layout in ("auto", "scatter", "auto"):
+        cfg = BAConfig(max_iterations=10, rtol=0.0, pcg_iterations=25, obs_layout=layout)
+        torch.cuda.reset_peak_memory_stats()
+        K_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, st = bundle_adjust_sparse(state, K, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append(dict(layout=layout, out=out, st=st, ms=ms,
+                         peak=torch.cuda.max_memory_allocated(),
+                         launches=K_mod.launch_counts()))
+    n_obs = int(state.obs_mask.sum())
+    first = runs[0]
+    st = first["st"]
     it = int(st.iterations)
     c0, c1 = float(st.initial_cost), float(st.final_cost)
-    n_obs = int(state.obs_mask.sum())
+    ms_it = [r["ms"] / int(r["st"].iterations) for r in runs]
     print(f"ba sparse: 64 cams x 16384 lm x {state.num_observations} obs ({n_obs} valid): "
-          f"cost {c0:.6g} -> {c1:.6g} in {it} LM iterations, {ms / it:.3f} ms/iteration "
-          f"(host clock, synchronized); peak device memory {peak / 2**20:.1f} MiB "
-          f"({(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
-          f"before the call)")
+          f"cost {c0:.6g} -> {c1:.6g} in {it} LM iterations, "
+          + " / ".join(f"{m:.3f} ({r['layout']})" for m, r in zip(ms_it, runs))
+          + f" ms/iteration (host clock, synchronized); peak device memory "
+          f"{first['peak'] / 2**20:.1f} MiB ({(first['peak'] - base) / 2**20:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB held before the call); segmented-sum launches "
+          f"{first['launches']['segment_sum']}")
     _check(c1 < c0 and math.isfinite(c1), "ba sparse: cost did not go down")
-    return dict(initial_cost=c0, final_cost=c1, iterations=it, ms_per_iteration=ms / it,
-                peak_bytes=peak, base_bytes=base)
+    same = all(torch.equal(first["st"].final_cost, r["st"].final_cost)
+               and torch.equal(first["out"].X, r["out"].X)
+               and torch.equal(first["out"].poses.t, r["out"].poses.t) for r in runs[1:])
+    print(f"ba sparse: the 'auto', 'scatter' and 'auto' runs equal bit for bit (cost, X, t): "
+          f"{same}")
+    _check(same, "ba sparse: two runs differ")
+    _check(all(r["launches"]["segment_sum"] > 0 for r in runs),
+           "ba sparse: the segmented sum never launched")
+    return dict(initial_cost=c0, final_cost=c1, iterations=it, ms_per_iteration=ms_it,
+                layouts=[r["layout"] for r in runs], peak_bytes=first["peak"],
+                base_bytes=base, runs_equal=same, launches=first["launches"])
+
+
+def _seg_library_ms(values, keys, n: int) -> dict:
+    """The two yardsticks beside the segmented sum, one PyTorch call each on
+    the same values and the unsorted row of each entry (masked entries on a
+    dump row n): ``torch.index_add`` (float atomics; CUDA-graph replays,
+    as the kernel) and ``index_put_(accumulate=True)`` under
+    ``torch.use_deterministic_algorithms(True)`` (its sort-based
+    deterministic version; CUDA events around back-to-back calls, as the
+    plain versions are timed).  Timed here, used nowhere in the port."""
+    import torch
+
+    from points_matching_tpu_torch.utils.profiling import cuda_event_ms, cuda_graph_ms
+
+    zeros = torch.zeros((n + 1, *values.shape[1:]), dtype=values.dtype, device=values.device)
+    index_add = cuda_graph_ms(lambda: torch.index_add(zeros, 0, keys, values))
+    acc = zeros.clone()
+    torch.use_deterministic_algorithms(True)
+    try:
+        index_put = cuda_event_ms(lambda: acc.index_put_((keys,), values, accumulate=True))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(index_add_ms=index_add, index_put_deterministic_ms=index_put)
+
+
+def _host_us(fn, n: int = 500) -> float:
+    """The host's µs to enqueue one call of ``fn`` (``n`` calls back to back,
+    no wait; for calls the card finishes faster than the host enqueues)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _segment_sum(dev) -> dict:
+    """The segmented-sum kernel against its plain version at the shapes of
+    its paths: the ``ba sparse`` phase's camera and landmark plans (64 ×
+    16,384 × 131,072; W = 36, 6 and 9, 3), config 4's full-length batch of
+    283 windowed BAs (20 cameras, 2,048 landmarks, 8,192 observations a
+    segment, 60 % valid; the [S·C] rows at W = 36 and the [S·L] rows at W =
+    9) and the pose graph at P = 4,541 (the ``pose graph`` phase's circuit;
+    endpoints [ei; ej], f64 at W = 6 and 36).  Each within the kernel's
+    rounding bound (``segment_sum.rounding_bound``) of the plain version
+    in float64 (``max_abs_err`` is that gap), two launches equal bit
+    for bit, and a batch equal to each problem alone bit for bit (config 4:
+    each of the 283 segments; the others: two copies side by side); kernel
+    ms (CUDA-graph replays) beside the plain version's, the bound and the
+    two library calls.  At the pose graph's W = 6 also the host's µs to
+    enqueue a call, against the sums before the plans, ``torch.zeros`` +
+    ``index_add_``."""
+    import torch
+
+    from points_matching_tpu_torch.ba.pose_graph import make_odometry_chain
+    from points_matching_tpu_torch.ba.sparse import make_sparse_ba_state, sparse_plans
+    from points_matching_tpu_torch.core.types import flat_rows
+    from points_matching_tpu_torch.data.synthetic import make_sparse_ba_problem
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+    from points_matching_tpu_torch.utils.profiling import cuda_event_ms, cuda_graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    prob = make_sparse_ba_problem(seed=1, num_cameras=64, num_landmarks=16384,
+                                  obs_per_landmark=8, device=dev)
+    ba = make_sparse_ba_state(prob["poses"], prob["X"], prob["cam_idx"], prob["lm_idx"],
+                              prob["uv"], prob["obs_mask"])
+    S, C, L, O = 283, SEG4, 2048, 8192
+    c4_cam = torch.randint(0, C, (S, O), generator=gen, device=dev)
+    c4_lm = torch.randint(0, L, (S, O), generator=gen, device=dev)
+    c4_mask = torch.rand(S, O, generator=gen, device=dev) < 0.6
+    P = 4541
+    g = make_odometry_chain(_circuit_poses(P, 500, dev), torch.Generator(device=dev).manual_seed(P),
+                            loop_edges=tuple((i, i + 500) for i in range(0, P - 500, 500)))
+    ends = torch.cat([g.edges_i, g.edges_j]).long()
+    # (tag, index [S', R'] of S' problems, rows a problem, mask, widths, dtype)
+    cases = [("ba sparse cameras", ba.cam_idx.long()[None], 64, ba.obs_mask[None], (36, 6),
+              torch.float32),
+             ("ba sparse landmarks", ba.lm_idx.long()[None], 16384, ba.obs_mask[None], (9, 3),
+              torch.float32),
+             ("config4 cameras", c4_cam, C, c4_mask, (36,), torch.float32),
+             ("config4 landmarks", c4_lm, L, c4_mask, (9,), torch.float32),
+             ("pose graph P=4541", ends[None], P, torch.ones_like(ends[None], dtype=torch.bool),
+              (6, 36), torch.float64)]
+    # the BA's plans come from the BA's own builder
+    cp, lp = sparse_plans(ba)
+    out = []
+    for tag, index, n, mask, widths, dtype in cases:
+        B, R = index.shape
+        plan = ss.build_plan(flat_rows(index, n), B * n, mask)
+        keys = torch.where(mask, flat_rows(index, n), B * n).reshape(-1)
+        if tag.startswith("ba sparse"):
+            one = cp if tag.endswith("cameras") else lp
+            _check(all(torch.equal(a, b) for a, b in zip(one[:4], plan[:4])),
+                   f"segment sum {tag}: the BA's plan differs")
+        # the batch of the check: config 4's own 283, else two copies side by side
+        bidx, bmask = (index, mask) if B > 1 else (index.expand(2, -1), mask.expand(2, -1))
+        bplan = plan if B > 1 else ss.build_plan(flat_rows(bidx, n), 2 * n, bmask)
+        for W in widths:
+            values = torch.randn(B * R, W, generator=gen, device=dev, dtype=dtype)
+            got = ss.segment_sum(values, plan)
+            ref = ss.segment_sum_plain(values.double(), plan)
+            again = ss.segment_sum(values, plan)
+            tol = ss.rounding_bound(values, plan)
+            bvalues = values if B > 1 else torch.randn(2 * R, W, generator=gen, device=dev,
+                                                       dtype=dtype)
+            bgot = got if B > 1 else ss.segment_sum(bvalues, bplan)
+            torch.cuda.synchronize()
+            err = float((got.double() - ref).abs().max())
+            within = bool(((got.double() - ref).abs() <= tol).all())
+            twice = torch.equal(got, again)
+            alone = all(torch.equal(bgot[s * n:(s + 1) * n], ss.segment_sum(
+                bvalues[s * R:(s + 1) * R], ss.build_plan(bidx[s], n, bmask[s])))
+                for s in range(bidx.shape[0]))
+            bound = _bound_of(ss.segment_sum, values, plan)
+            ms = cuda_graph_ms(lambda: ss.segment_sum(values, plan))
+            pms = cuda_event_ms(lambda: ss.segment_sum_plain(values, plan))
+            lib = _seg_library_ms(values, keys, B * n)
+            valid = int(plan.offsets[-1])
+            print(f"segment sum {tag} {B} x {n} rows x {R} entries ({valid} valid), W = {W} "
+                  f"{str(dtype)[6:]}: max |kernel - plain| {err:.3g} (within the rounding "
+                  f"bound {within}), two launches equal {twice}, a batch of {bidx.shape[0]} "
+                  f"equal to each problem alone {alone}; {ms:.5f} ms vs plain {pms:.5f} ms, bound "
+                  f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), index_add "
+                  f"{lib['index_add_ms']:.5f} ms, deterministic index_put_ "
+                  f"{lib['index_put_deterministic_ms']:.5f} ms")
+            _check(within and twice and alone, f"segment sum {tag} W = {W}: disagrees")
+            out.append(dict(case=tag, problems=B, rows=n, entries=R, valid=valid, width=W,
+                            dtype=str(dtype)[6:], max_abs_err=err, ms=ms, plain_ms=pms,
+                            **bound, library_ms=lib["index_add_ms"],
+                            library_deterministic_ms=lib["index_put_deterministic_ms"]))
+            if tag.startswith("pose graph") and W == 6:
+                host = _host_us(lambda: ss.segment_sum(values, plan))
+                scatter = _host_us(lambda: torch.zeros(
+                    (B * n, W), dtype=dtype, device=dev).index_add_(0, ends, values))
+                print(f"segment sum {tag} W = {W}: the host's enqueue {host:.2f} us a call "
+                      f"against {scatter:.2f} us for torch.zeros + index_add_")
+                out[-1].update(host_us=host, host_us_zeros_index_add=scatter)
+    return dict(cases=out)
 
 
 def _near_tie_cells(got, ref, qd, qm, td, tm, ratio: float) -> int:
@@ -827,7 +1012,7 @@ def _drifted_start(g):
     return Pose(R=torch.stack(R).float().to(dev), t=torch.stack(t).float().to(dev))
 
 
-def _pose_graph(dev) -> dict:
+def _pose_graph(dev, K_mod) -> dict:
     """``make_odometry_chain`` + ``optimize_pose_graph`` on the card: a
     circuit driven lap after lap (``_circuit_poses``), odometry noise 0.01,
     a loop edge at every revisit — every 500 poses (one lap of 99 at P =
@@ -835,13 +1020,14 @@ def _pose_graph(dev) -> dict:
     BASELINE config 3's length), also solved on the CPU, and P = 4,541 (KITTI
     odometry sequence 00, BASELINE config 4; ``solver="auto"`` takes PCG).
     The cost and the mean translation error against ground truth must
-    fall."""
+    fall, and a second run (the one that counts host syncs) must end at the
+    same bits; the timed runs' launches are the path's."""
     import torch
 
     from points_matching_tpu_torch.ba.pose_graph import (
         make_odometry_chain, optimize_pose_graph, pose_graph_cost)
 
-    out = {}
+    out, launches = {}, None
     # P = 4,541 twice: PCG's default of 100 steps a solve, reported only (it
     # stops early: on this graph the cost fell 10× while the mean error rose,
     # measured on one H100), and 1,000 steps, held (CG needs about the loop spacing in
@@ -856,12 +1042,17 @@ def _pose_graph(dev) -> dict:
         optimize_pose_graph(g0, max_iterations=1, pcg_iterations=pcg)    # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        K_mod.reset_launch_counts()
         t0 = time.perf_counter()
         g1, st = optimize_pose_graph(g0, pcg_iterations=pcg)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
-        _, syncs = _count_syncs(lambda: optimize_pose_graph(g0, pcg_iterations=pcg))
+        counts = K_mod.launch_counts()
+        launches = counts if launches is None else {k: launches[k] + v
+                                                    for k, v in counts.items()}
+        (g2, _), syncs = _count_syncs(lambda: optimize_pose_graph(g0, pcg_iterations=pcg))
+        same = torch.equal(g1.poses.R, g2.poses.R) and torch.equal(g1.poses.t, g2.poses.t)
         it = int(st.iterations)
 
         def err(p):
@@ -873,13 +1064,16 @@ def _pose_graph(dev) -> dict:
         print(f"pose graph P = {P} ({g.num_edges} edges, {len(loops)} loops, {solver}): cost "
               f"{c0:.6g} -> {c1:.6g} in {it} GN iterations, {ms / it:.3f} ms/iteration (host "
               f"clock, synchronized), mean translation error {e0:.4f} -> {e1:.4f}; host syncs "
-              f"{syncs}; peak device memory {peak / 2**20:.1f} MiB"
+              f"{syncs}; peak device memory {peak / 2**20:.1f} MiB; segmented-sum launches "
+              f"{counts['segment_sum']}; a second run equal bit for bit {same}"
               + ("" if held else " (reported, not held)"))
+        _check(same, f"pose graph P = {P}: two runs differ")
         _check(c1 < c0 and math.isfinite(c1), f"pose graph P = {P}: cost did not fall")
         _check(e1 < e0 or not held, f"pose graph P = {P}: the error did not fall")
         entry = dict(poses=P, edges=g.num_edges, solver=solver, held=held, iterations=it,
                      initial_cost=c0, final_cost=c1, err_before=e0, err_after=e1,
-                     ms_per_iteration=ms / it, host_syncs=syncs, peak_bytes=peak)
+                     ms_per_iteration=ms / it, host_syncs=syncs, peak_bytes=peak,
+                     runs_equal=same)
         if P == 100:
             cpu, cst = optimize_pose_graph(g0.to("cpu"))
             dR = float((cpu.poses.R - g1.poses.R.cpu()).abs().max())
@@ -890,7 +1084,7 @@ def _pose_graph(dev) -> dict:
             _check(max(dR, dt) <= 1e-4, "pose graph: GPU and CPU poses differ")
             entry.update(gpu_vs_cpu_dR=dR, gpu_vs_cpu_dt=dt)
         out[f"P{P}" if P == 100 else f"P{P}_pcg{pcg}"] = entry
-    return out
+    return dict(out, launches=launches)
 
 
 def _all_pairs(dev, K_mod) -> dict:
@@ -1258,22 +1452,25 @@ SEG4_BATCHES = (16, 283)
 # segments: each segment's camera centres, RMS, the largest over the
 # segments
 BATCH_VS_LOOP_SEGMENTS = 4
-# A last-bit difference early in a segment (an index_add_ atomic's order,
-# a batched reduction's blocking) carries to its cameras through the
-# windowed BAs' accept/reject decisions: on an NVIDIA H100 (700 W,
-# examples/probe_config4_torch.py) two loop runs put a submap's cameras up
-# to 0.041 apart, RMS.  The batch may differ from a loop by that much more
-# than the two loops differ from each other.
+# The batch against the loop: the BAs' sums go through the segmented-sum
+# kernel (a fixed order, no atomics), so two loops give the same bits
+# (loop-loop 0 on an NVIDIA H100, 700 W, chip_smoke.py); the batch
+# still differs from a loop in the last bits of its batched reductions
+# (batched matrix products and sums block otherwise), which the windowed
+# BAs' accept/reject decisions carry to the cameras: batch-loop 0.0155 RMS
+# (0.0285 under float atomics).  The batch may differ from a loop
+# by this much more than the two loops differ from each other.
 BATCH_VS_LOOP_TOL = 0.041
-# Config 4 at world sizes 1 and 2 against each other.  Two runs of the same
-# world size differ already: the float atomics of the windowed BAs'
-# index_add_ move a submap's cameras by up to 0.041 RMS, and the Sim(3)
-# chain carries that along the corridor.  On an NVIDIA H100 (700 W,
-# examples/probe_config4_torch.py, 27 pairs of 7 + 4 runs) the RMS aligned
-# gap between two runs was at most 0.396 (world size 1 twice), 0.460 (1
-# and 2) and 0.425 (2 twice), and the ATEs of 11 runs lay within 0.033 of
-# each other (0.8214-0.8542).  The bounds are about twice those: the RMS gap
-# (the ATE's own measure) as a fraction of the extent, and the ATEs' difference.
+# Config 4 at world sizes 1 and 2 against each other.  Two runs of one world
+# size give the same bits (the ``_same_run`` check).  World size 2 shards the
+# global BA's observations and completes each sum over the ranks, another
+# order than one process, so the two differ from the first bits on and the
+# Sim(3) chain carries that along the corridor: RMS aligned gap 0.0494 and
+# ATEs 0.8129 / 0.8142 on an NVIDIA H100, 700 W (chip_smoke.py); under
+# float atomics (examples/probe_config4_torch.py) any two runs were up
+# to 0.460 apart and 11 ATEs spread over 0.8214-0.8542.  The bounds stay at
+# about twice those older readings: the RMS gap (the ATE's own measure) as a
+# fraction of the extent, and the ATEs' difference.
 RUN_GAP_TOL = 0.012
 ATE_GAP_TOL = 0.08
 
@@ -1290,16 +1487,16 @@ def _dslam_config(segment_len: int, max_landmarks: int = 1024, max_observations:
         max_observations=max_observations, local_ba_window=segment_len)
 
 
-def _config4_run(dev, mesh, seq=CONFIG4):
+def _config4_run(dev, mesh, seq=CONFIG4, data=None):
     """Config 4 through ``run_distributed_slam`` on ``dev`` on the sequence
-    ``seq`` (the stand-in by default): (result, ground-truth centres,
-    seconds on the host clock)."""
+    ``seq`` (the stand-in by default), or on ``data`` (that sequence already
+    made): (result, ground-truth centres, seconds on the host clock)."""
     import torch
 
     from points_matching_tpu_torch.data.synthetic import make_stacked_sequence
     from points_matching_tpu_torch.pipelines.distributed_slam import run_distributed_slam
 
-    kps, desc, mask, K, gt = make_stacked_sequence(device=dev, **seq)
+    kps, desc, mask, K, gt = data or make_stacked_sequence(device=dev, **seq)
     cfg = _dslam_config(SEG4, 2048, 8192)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1331,6 +1528,21 @@ def _aligned_gap(a, b, rms: bool = False) -> float:
     s, R, t = umeyama_alignment(a, b)
     d = (s * a @ R.T + t - b).norm(dim=-1)
     return float(d.square().mean().sqrt() if rms else d.max())
+
+
+def _same_run(tag: str, a, b) -> dict:
+    """Two runs of config 4 with the same inputs: the RMS aligned gap of
+    their trajectories, and whether they are equal in every bit (the
+    trajectory, the valid cameras, the registrations and the global BA's
+    final cost); fails unless they are."""
+    same = (np.array_equal(a.trajectory, b.trajectory)
+            and np.array_equal(a.cam_valid, b.cam_valid)
+            and np.array_equal(a.registered_per_segment, b.registered_per_segment)
+            and float(a.ba_stats.final_cost) == float(b.ba_stats.final_cost))
+    gap = _aligned_gap(a.trajectory, b.trajectory, rms=True)
+    print(f"{tag} run twice: aligned trajectory gap RMS {gap:.6g}, equal in every bit {same}")
+    _check(same, f"{tag}: two runs of the same inputs differ")
+    return dict(gap_rms=gap, equal=same)
 
 
 def _config4_gates(tag: str, traj, cam_valid, regs, initial_cost, final_cost, gt,
@@ -1455,6 +1667,7 @@ def _distributed(dev, K_mod) -> dict:
     K_mod.reset_launch_counts()
     res1, gt, sec1 = _config4_run(dev, mesh)
     launches = K_mod.launch_counts()
+    again, _, _ = _config4_run(dev, mesh)
     dist.destroy_process_group()
     st = res1.ba_stats
     g1 = _config4_gates("ws1 (NCCL)", res1.trajectory, res1.cam_valid,
@@ -1467,9 +1680,10 @@ def _distributed(dev, K_mod) -> dict:
           f"s, global BA {stage['global_ba']:.3f} s in {its1} LM iterations "
           f"({stage['global_ba'] / its1 * 1e3:.3f} ms an iteration); launches {launches}")
     _segment_launches("distributed ws1 (16 segments, one batch)", launches, SEG4)
+    rerun = _same_run("distributed ws1", res1, again)
     out.update(ws1=dict(g1, seconds=sec1, frames_per_s=CONFIG4["num_frames"] / sec1,
                         lm_iterations=its1, stage_seconds=stage,
-                        ba_ms_per_iteration=stage["global_ba"] / its1 * 1e3),
+                        ba_ms_per_iteration=stage["global_ba"] / its1 * 1e3, rerun=rerun),
                launches=launches)
 
     # world size 2: two processes on this card, one gloo group
@@ -1539,9 +1753,8 @@ def _batch_vs_loop(dev) -> dict:
     one batch (``build_submaps``) and twice as a loop of one-segment builds
     (``build_submap``, each segment's own generator): the same frames
     registered, and the batch's cameras no farther from a loop's than the
-    two loops' from each other, plus ``BATCH_VS_LOOP_TOL`` (the float
-    atomics of the windowed BAs' ``index_add_`` make two loops differ
-    already; a batch sums in other blocks again)."""
+    two loops' from each other (0: the same bits), plus
+    ``BATCH_VS_LOOP_TOL`` (a batch's reductions block otherwise)."""
     import torch
 
     from points_matching_tpu_torch.data.synthetic import make_stacked_sequence
@@ -1596,22 +1809,29 @@ def _config4_full(dev, K_mod) -> dict:
     but for the ATE (printed against 10 % of the extent: no run has chained
     283 Sim(3) alignments before), one K1 launch for the bootstrap and three
     a frame step, K3 = K2 = 1; its seconds by stage, frames/s, peak device
-    memory and the global BA's ms an LM iteration."""
+    memory and the global BA's ms an LM iteration.  Run twice on the same
+    sequence (made once): the two must be equal in every bit."""
     import torch
     import torch.distributed as dist
 
+    from points_matching_tpu_torch.data.synthetic import make_stacked_sequence
     from points_matching_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
     initialize_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1,
                            rank=0, timeout=60, force=True)
     mesh = make_mesh((1, 1), ("data", "model"))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data = make_stacked_sequence(device=dev, **CONFIG4_FULL)
+    t_seq = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     K_mod.reset_launch_counts()
-    res, gt, sec = _config4_run(dev, mesh, CONFIG4_FULL)
+    res, gt, sec = _config4_run(dev, mesh, data=data)
     launches = K_mod.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    again, _, sec2 = _config4_run(dev, mesh, data=data)
     dist.destroy_process_group()
+    del data
     st, stage = res.ba_stats, res.stage_seconds
     regs = res.registered_per_segment
     frames = regs.shape[0] * (SEG4 - OVERLAP4) + OVERLAP4
@@ -1627,8 +1847,11 @@ def _config4_full(dev, K_mod) -> dict:
           f"({stage['global_ba'] / its * 1e3:.3f} ms an iteration); peak device memory "
           f"{peak / 2**30:.3f} GiB")
     _segment_launches("distributed full length", launches, SEG4)
+    print(f"distributed full length: the sequence made in {t_seq:.3f} s, once for both runs; "
+          f"the second run {sec2:.3f} s")
+    rerun = _same_run("distributed full length", res, again)
     torch.cuda.empty_cache()
-    return dict(g, frames_used=frames, seconds=sec, frames_per_s=frames / sec,
+    return dict(g, frames_used=frames, seconds=sec, frames_per_s=frames / sec, rerun=rerun,
                 stage_seconds=stage, lm_iterations=its,
                 ba_ms_per_iteration=stage["global_ba"] / its * 1e3,
                 peak_memory_bytes=peak, launches=launches)
@@ -2450,8 +2673,10 @@ def main() -> int:
     # -- 5. SfM: BASELINE config 3 (without loop closure), the JAX bench's
     # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
     for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
-                      ("sfm32", lambda: _slice_sfm32(dev, K)), ("ba", lambda: _ba_sparse(dev)),
-                      ("pose_graph", lambda: _pose_graph(dev)),
+                      ("sfm32", lambda: _slice_sfm32(dev, K)),
+                      ("segment_sum", lambda: _segment_sum(dev)),
+                      ("ba", lambda: _ba_sparse(dev, K)),
+                      ("pose_graph", lambda: _pose_graph(dev, K)),
                       ("all_pairs", lambda: _all_pairs(dev, K)),
                       ("distributed", lambda: _distributed(dev, K)),
                       ("slam", lambda: _slam(dev, K, measure, (im1, im2), (q, t, t_mask),
@@ -2488,6 +2713,8 @@ def main() -> int:
     dist_launches = report["distributed"].pop("launches")
     slam_launches = report["slam"].pop("launches")
     probe_launches = report["probes"].pop("launches")
+    ba_launches = report["ba"].pop("launches")
+    pg_launches = report["pose_graph"].pop("launches")
 
     def launches(name):
         by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
@@ -2495,8 +2722,17 @@ def main() -> int:
                        all_pairs=all_pairs["launches"] if name == "fused_l2_top2" else 0,
                        staged=staged_launches[name], pairs=pairs_launches[name],
                        distributed=dist_launches[name],
-                       slam=slam_launches[name], probe=probe_launches[name])
+                       slam=slam_launches[name], probe=probe_launches[name],
+                       ba=ba_launches[name], pose_graph=pg_launches[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
+    # the segmented sum on every path that runs a BA or a pose graph
+    seg = launches("segment_sum")
+    print(f"segment sum: launches on the main paths {seg['launches_by_path']}")
+    for path in ("sfm", "loop", "distributed", "slam", "ba", "pose_graph"):
+        _check(seg["launches_by_path"][path] > 0, f"{path}: the segmented sum never launched")
+    seg_cases = report.pop("segment_sum")["cases"]
+    seg_head = seg_cases[0]          # the ba sparse camera rows at W = 36
 
     kernels = [
         dict(name="fused_l2_top2", route="cuda", source=src + "matching_top2.cu",
@@ -2529,6 +2765,17 @@ def main() -> int:
              also_replaces=probe + "score_variants.py:176",
              headline="multiply gate, bf16 x 3 products (split3, stack3, ostack3)",
              **launches("score_variant"), **report["probes"]["score_variant"]),
+        dict(name="segment_sum", route="cuda", source=src + "segment_sum.cu",
+             replaces="points_matching_tpu/ba/sparse.py:97",
+             replaces_note="no pallas_call: the semantics of the reference's 'sorted' "
+                           "observation layout (_sorted_ops, _sort_obs_by_landmark:143)",
+             **seg, **{k: seg_head[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
+                 "library_ms", "library_deterministic_ms")},
+             max_abs_err_all=max(c["max_abs_err"] for c in seg_cases),
+             library_calls="torch.index_add (atomics); library_deterministic_ms: "
+                           "index_put_(accumulate=True) under deterministic algorithms",
+             headline="ba sparse camera rows, W = 36", shapes=seg_cases),
     ]
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")

@@ -10,8 +10,10 @@ aligned apart; the largest over the segments) and the merged trajectory
 that the global BA starts from (``merge_submaps``' output, recorded by
 wrapping it).  Also the share of a submap bank's 2,048
 rows that are valid when a frame is associated against it (world size 1),
-which ``chip_smoke.py``'s config-4 K1 case masks to.  The float atomics of
-the BAs' ``index_add_`` make two runs differ; the gaps measure by how much.
+which ``chip_smoke.py``'s config-4 K1 case masks to.  Since the BAs sum
+through the segmented-sum kernel (a fixed order, no atomics), two runs of
+one world size give the same bits; world sizes 1 and 2 still differ by the
+order of the ranks' partial sums, and the gaps measure by how much.
 
     python examples/probe_config4_torch.py [--ws1 4] [--ws2 3] [--out readings.json]
 

@@ -3,37 +3,42 @@ of ``points_matching_tpu/ba/sparse.py``.
 
 Everything is computed from the flat observation arrays (cam_idx, lm_idx,
 uv): per-observation residuals and closed-form Jacobians, normal-equation
-blocks by ``index_add_`` (the reference's ``segment_sum``), and the reduced
+blocks by segmented sums (the reference's ``segment_sum``), and the reduced
 camera system solved by Jacobi-preconditioned CG with an implicit Schur
 matvec — ``[C, L]`` never exists:
 
     S x = U x − Σ_l W_{·l} V_l⁻¹ (Σ_o W_oᵀ x_{cam(o)})
 
-Duplicate (c, l) observations add, exactly.  ``BAConfig.obs_layout`` is
-accepted with every value and always runs the scatter form: the
-reference's ``'sorted'`` layout (one-hot GEMM camera sums, cumsum-diff
-landmark sums) exists because scatters run on the TPU's scalar unit, and is
-not ported.  On CUDA ``index_add_`` adds with float atomics, so two runs of
-the same problem may differ in the last bits (and an LM accept/reject may
-flip); runs on the card are held to the CPU by cost, not by bits.
+Duplicate (c, l) observations add, exactly.  Every layout of
+``BAConfig.obs_layout`` (``'auto'``, ``'sorted'``, ``'scatter'``) runs the
+semantics of the reference's sorted layout, and the reference's two
+layouts give the same bits: the observations are sorted once per BA call
+into two plans (by camera and by landmark;
+``ops/kernels/segment_sum.build_plan``, masked observations left out) and
+every sum of the call reuses them.  On the card the segmented-sum kernel
+adds each row in an order fixed by its own observations, without atomics,
+so two runs give the same bits; on the CPU the plain version adds each row
+in observation order, as a scatter over the observation index would.  The
+reference's TPU mechanics for the sorted layout (one-hot GEMM camera sums,
+cumsum-diff landmark sums) are not ported.
 
 Observation sharding (the reference's ``axis_name`` under ``shard_map``):
 with a process ``group``, the observation arrays are this rank's shard,
-poses and landmarks are replicated, and every local ``index_add_`` partial
-(U, V, bc, bl; the matvec's two sums; the gradient and preconditioner sums;
-the back-substitution; the cost) is completed by one ``all_reduce`` over
-the group.  The CG state is replicated, so its dot products need none.
-``parallel/sharded_ba.py`` splits the observations.  With ``group=None``
-nothing is reduced and every result is the single process's, bit for bit.
+poses and landmarks are replicated, and every local partial sum (U, V, bc,
+bl; the matvec's two sums; the gradient and preconditioner sums; the
+back-substitution; the cost) is completed by one ``all_reduce`` over the
+group.  The plans are this rank's.  The CG state is replicated, so its dot
+products need none.  ``parallel/sharded_ba.py`` splits the observations.
+With ``group=None`` nothing is reduced and every result is the single
+process's, bit for bit.
 
 A leading batch axis (the segment axis of ``pipelines/distributed_slam.py``:
 poses [S, C], X [S, L, 3], observations [S, O]) holds S problems solved
 side by side, the port of the reference's ``vmap``: each observation's
 camera and landmark index is offset by s·C and s·L into the flattened
-[S·C] and [S·L] rows, so every scatter-add lands in its own problem's rows
-in its own order, and the LM loop (``ba/lm.lm_loop``) and the CG dot
-products (``ba/schur.pcg``) run per problem.  Each problem gets what it
-gets alone.
+[S·C] and [S·L] rows, so every sum lands in its own problem's rows in its
+own order, and the LM loop (``ba/lm.lm_loop``) and the CG dot products
+(``ba/schur.pcg``) run per problem.  Each problem gets what it gets alone.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from points_matching_tpu_torch.ba.schur import _damp, _inv3, _preduce, pcg
 from points_matching_tpu_torch.core.config import BAConfig
 from points_matching_tpu_torch.core.device import pin_fp32
 from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose, flat_rows
+from points_matching_tpu_torch.ops.kernels.segment_sum import SegPlan, build_plan, segment_sum
 
 Tensor = torch.Tensor
 SparseLMStats = LMStats
@@ -105,13 +111,28 @@ def _at(x: Tensor, flat: Tensor) -> Tensor:
     return x.reshape(-1, *x.shape[flat.dim():])[flat]
 
 
-def _gathered(state: SparseBAState):
-    """Clipped per-observation indices (flattened, ``flat_rows``) and the
-    gathered R, t, X."""
+def _flat_index(state: SparseBAState) -> Tuple[Tensor, Tensor]:
+    """Clipped per-observation camera and landmark indices, flattened
+    (``flat_rows``)."""
     C, L = state.num_cameras, state.num_landmarks
-    c = flat_rows(state.cam_idx.long().clamp(0, C - 1), C)
-    l_ = flat_rows(state.lm_idx.long().clamp(0, L - 1), L)
+    return (flat_rows(state.cam_idx.long().clamp(0, C - 1), C),
+            flat_rows(state.lm_idx.long().clamp(0, L - 1), L))
+
+
+def _gathered(state: SparseBAState):
+    """Clipped per-observation indices (``_flat_index``) and the gathered
+    R, t, X."""
+    c, l_ = _flat_index(state)
     return c, l_, _at(state.poses.R, c), _at(state.poses.t, c), _at(state.X, l_)
+
+
+def sparse_plans(state: SparseBAState) -> Tuple[SegPlan, SegPlan]:
+    """The sort-once plans of the camera and the landmark index (masked
+    observations left out), for every sum of a BA call."""
+    c, l_ = _flat_index(state)
+    rows = math.prod(state.obs_mask.shape[:-1])
+    return (build_plan(c, rows * state.num_cameras, state.obs_mask),
+            build_plan(l_, rows * state.num_landmarks, state.obs_mask))
 
 
 def sparse_residuals(state: SparseBAState, K: CameraIntrinsics) -> Tensor:
@@ -150,16 +171,17 @@ class SparseNormalEq(NamedTuple):
     bl: Tensor       # [*B, L, 3]
     cam: Tensor      # [*B, O] clipped camera index (int64), flattened (``flat_rows``)
     lm: Tensor       # [*B, O] clipped landmark index (int64), flattened
+    cam_plan: SegPlan  # the sort-once plans of cam and lm (``sparse_plans``)
+    lm_plan: SegPlan
 
 
-def _seg_sum(values: Tensor, index: Tensor, n: int) -> Tensor:
+def _seg_sum(values: Tensor, index: Tensor, n: int, plan: SegPlan) -> Tensor:
     """Σ of the rows of ``values`` [*B, O, ...] per flattened index
-    [*B, O] (``flat_rows``) → [*B, n, ...]: each leading index's sums in its own
-    rows, added in its own order."""
+    [*B, O] (``flat_rows``) → [*B, n, ...] through ``index``'s ``plan``: each
+    leading index's sums in its own rows, in an order fixed by each row's
+    observations."""
     lead, rest = index.shape[:-1], values.shape[index.dim():]
-    out = torch.zeros((math.prod(lead) * n, *rest), dtype=values.dtype, device=values.device)
-    out.index_add_(0, index.reshape(-1), values.reshape(-1, *rest))
-    return out.reshape(*lead, n, *rest)
+    return segment_sum(values.reshape(-1, *rest), plan).reshape(*lead, n, *rest)
 
 
 def _outer2(A: Tensor, B: Tensor) -> Tensor:
@@ -175,12 +197,16 @@ def _lam(lam):
 
 
 def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
-                                  Jl: Tensor, weights: Tensor, group=None) -> SparseNormalEq:
-    """Scatter-add assembly of the GN blocks; weights [*B, O] (robust ×
-    valid).  With ``group``, U/V/bc/bl are reduced over it; Wo/cam/lm stay
-    local."""
+                                  Jl: Tensor, weights: Tensor, group=None,
+                                  plans: Optional[Tuple[SegPlan, SegPlan]] = None
+                                  ) -> SparseNormalEq:
+    """Segmented-sum assembly of the GN blocks; weights [*B, O] (robust ×
+    valid).  ``plans`` (``sparse_plans``, made here when None) are carried
+    in the result for the solve's sums.  With ``group``, U/V/bc/bl are
+    reduced over it; Wo/cam/lm stay local."""
     C, L = state.num_cameras, state.num_landmarks
-    cam, lm, *_ = _gathered(state)
+    cam, lm = _flat_index(state)
+    cp, lp = plans if plans is not None else sparse_plans(state)
     w = weights[..., None, None]
     Jcw = Jc * w
     Uo = _outer2(Jcw, Jc)
@@ -189,20 +215,23 @@ def build_sparse_normal_equations(state: SparseBAState, r: Tensor, Jc: Tensor,
     wr = r * weights[..., None]
     bco = -(Jc[..., 0, :] * wr[..., 0:1] + Jc[..., 1, :] * wr[..., 1:2])
     blo = -(Jl[..., 0, :] * wr[..., 0:1] + Jl[..., 1, :] * wr[..., 1:2])
-    return SparseNormalEq(U=_preduce(_seg_sum(Uo, cam, C), group),
-                          V=_preduce(_seg_sum(Vo, lm, L), group), Wo=Wo,
-                          bc=_preduce(_seg_sum(bco, cam, C), group),
-                          bl=_preduce(_seg_sum(blo, lm, L), group), cam=cam, lm=lm)
+    return SparseNormalEq(U=_preduce(_seg_sum(Uo, cam, C, cp), group),
+                          V=_preduce(_seg_sum(Vo, lm, L, lp), group), Wo=Wo,
+                          bc=_preduce(_seg_sum(bco, cam, C, cp), group),
+                          bl=_preduce(_seg_sum(blo, lm, L, lp), group), cam=cam, lm=lm,
+                          cam_plan=cp, lm_plan=lp)
 
 
 def sparse_schur_matvec(eq: SparseNormalEq, Vinv: Tensor, lam, x: Tensor,
                         group=None) -> Tensor:
-    """Implicit S @ x = (U − W V⁻¹ Wᵀ) x via two scatter-adds.  [*B, C, 6]."""
+    """Implicit S @ x = (U − W V⁻¹ Wᵀ) x via two segmented sums.  [*B, C, 6]."""
     C, L = eq.U.shape[-3], eq.V.shape[-3]
     Ux = (_damp(eq.U, _lam(lam)) * x[..., None, :]).sum(-1)
-    t = _preduce(_seg_sum((eq.Wo * _at(x, eq.cam)[..., :, None]).sum(-2), eq.lm, L), group)
+    t = _preduce(_seg_sum((eq.Wo * _at(x, eq.cam)[..., :, None]).sum(-2), eq.lm, L,
+                          eq.lm_plan), group)
     u = (Vinv * t[..., None, :]).sum(-1)
-    y = _preduce(_seg_sum((eq.Wo * _at(u, eq.lm)[..., None, :]).sum(-1), eq.cam, C), group)
+    y = _preduce(_seg_sum((eq.Wo * _at(u, eq.lm)[..., None, :]).sum(-1), eq.cam, C,
+                          eq.cam_plan), group)
     return Ux - y
 
 
@@ -215,12 +244,12 @@ def _sparse_schur_prep(eq: SparseNormalEq, lam, lm_fixed: Optional[Tensor] = Non
     if lm_fixed is not None:
         Vinv = torch.where(lm_fixed[..., None, None], torch.zeros_like(Vinv), Vinv)
     Vb = (Vinv * eq.bl[..., None, :]).sum(-1)
-    g = eq.bc - _preduce(_seg_sum((eq.Wo * _at(Vb, eq.lm)[..., None, :]).sum(-1), eq.cam, C),
-                         group)
+    g = eq.bc - _preduce(_seg_sum((eq.Wo * _at(Vb, eq.lm)[..., None, :]).sum(-1), eq.cam, C,
+                                  eq.cam_plan), group)
     Vv = _at(Vinv, eq.lm)                                                  # [*B, O, 3, 3]
     WV = (eq.Wo[..., :, :, None] * Vv[..., None, :, :]).sum(-2)           # [*B, O, 6, 3]
     WVWo = (WV[..., :, None, :] * eq.Wo[..., None, :, :]).sum(-1)         # [*B, O, 6, 6]
-    S_diag = _damp(eq.U, _lam(lam)) - _preduce(_seg_sum(WVWo, eq.cam, C), group)
+    S_diag = _damp(eq.U, _lam(lam)) - _preduce(_seg_sum(WVWo, eq.cam, C, eq.cam_plan), group)
     return Vinv, g, torch.linalg.inv_ex(S_diag)[0]
 
 
@@ -234,8 +263,8 @@ def solve_sparse_schur_pcg(eq: SparseNormalEq, lam, iterations: int = 50,
     Vinv, g, Minv = _sparse_schur_prep(eq, lam, lm_fixed, group)
     dc = pcg(lambda x: sparse_schur_matvec(eq, Vinv, lam, x, group),
              lambda r: (Minv * r[..., None, :]).sum(-1), g, iterations)
-    rhs = eq.bl - _preduce(_seg_sum((eq.Wo * _at(dc, eq.cam)[..., :, None]).sum(-2), eq.lm, L),
-                           group)
+    rhs = eq.bl - _preduce(_seg_sum((eq.Wo * _at(dc, eq.cam)[..., :, None]).sum(-2), eq.lm, L,
+                                    eq.lm_plan), group)
     return dc, (Vinv * rhs[..., None, :]).sum(-1)
 
 
@@ -253,17 +282,23 @@ def bundle_adjust_sparse(state: SparseBAState, K: CameraIntrinsics,
     """LM on observation lists — the contract of ``ba.lm.bundle_adjust``
     (monotone cost, same stopping rule) at O(observations) memory.  The
     solver is always the implicit-Schur PCG (``config.pcg_iterations``).
-    With ``group``, ``state``'s observations are this rank's shard and the
-    sums are completed over the group (module docstring); every rank then
-    holds the same poses, landmarks and stats.  A state with a leading batch
-    axis is that many problems, each with its own LM loop (stats [*B]);
-    ``active`` [*B] leaves the problems it marks False untouched."""
+    The observations are sorted once here, whatever ``config.obs_layout``
+    names (module docstring).  With ``group``, ``state``'s observations are
+    this rank's shard and the sums are completed over the group (module
+    docstring); every rank then holds the same poses, landmarks and stats.
+    A state with a leading batch axis is that many problems, each with its
+    own LM loop (stats [*B]); ``active`` [*B] leaves the problems it marks
+    False untouched."""
     pin_fp32()
+    if config.obs_layout not in ("auto", "sorted", "scatter"):
+        raise ValueError(f"unknown obs_layout: {config.obs_layout!r}")
+    # the observations' indices and mask do not change across iterations
+    plans = sparse_plans(state)
 
     def step(st: SparseBAState, lam: Tensor) -> SparseBAState:
         r, Jc, Jl = sparse_residuals_and_jacobians(st, K)
         w = huber_weights(r, config.huber_delta) * st.obs_mask.to(r.dtype)
-        eq = build_sparse_normal_equations(st, r, Jc, Jl, w, group)
+        eq = build_sparse_normal_equations(st, r, Jc, Jl, w, group, plans)
         dc, dl = solve_sparse_schur_pcg(eq, lam, config.pcg_iterations,
                                         lm_fixed=st.lm_fixed, group=group)
         return dataclasses.replace(st, poses=retract(st.poses, st.cam_fixed, dc),

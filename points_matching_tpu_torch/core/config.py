@@ -117,8 +117,12 @@ class BAConfig:
     huber_delta: float = 0.0       # 0 → plain L2; >0 → Huber robust loss
     solver: str = "cholesky"       # 'cholesky' | 'pcg' (reduced camera system)
     pcg_iterations: int = 50
-    obs_layout: str = "auto"       # sparse BA reduction layout (kept for
-                                   # config parity; BA is not ported yet)
+    obs_layout: str = "auto"       # sparse BA reduction layout: 'auto' |
+                                   # 'sorted' | 'scatter', all one path
+                                   # (the reference's two give the same
+                                   # bits): sort once a BA call, then the
+                                   # segmented-sum kernel, the same bits
+                                   # on every run
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,15 @@ def to_homogeneous(x: Tensor) -> Tensor:
     return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
 
 
+def from_homogeneous(x: Tensor, eps: float = 1e-12) -> Tensor:
+    """[..., D+1] → [..., D] by perspective division (a last coordinate
+    within ``eps`` of 0 divides as ±``eps``, keeping its sign)."""
+    w = x[..., -1:]
+    w = torch.where(w.abs() < eps, torch.where(w < 0, torch.full_like(w, -eps),
+                                               torch.full_like(w, eps)), w)
+    return x[..., :-1] / w
+
+
 def skew(v: Tensor) -> Tensor:
     """[..., 3] → [..., 3, 3] cross-product (hat) matrix."""
     z = torch.zeros_like(v[..., 0])

@@ -10,9 +10,11 @@
 | P1  | ``probe_match.gemm_rowmin`` | ``benchmarks/probe/match_variants.py:gemm_only`` |
 | P2  | ``probe_match.packed_top2`` | ``benchmarks/probe/match_variants.py:packed_top2`` |
 | P3, P4 | ``probe_score.score_variant`` | ``benchmarks/probe/score_variants.py:build_fn_stacked``, ``build_fn`` |
+| SS  | ``segment_sum.segment_sum`` | none: the semantics of ``ba/sparse.py``'s ``'sorted'`` layout |
 
-K1–K4 are on the package's paths; P1–P4 only on the probes' (the probe
-scripts ``examples/probe_*_variants_torch.py`` and ``chip_smoke.py``).
+K1–K4 and SS are on the package's paths (SS: the sparse BA's and the pose
+graph's sums); P1–P4 only on the probes' (the probe scripts
+``examples/probe_*_variants_torch.py`` and ``chip_smoke.py``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises), runs the plain
 version for CPU tensors, and counts its kernel launches in its ``launches``
@@ -33,6 +35,7 @@ def _wrappers():
     from points_matching_tpu_torch.ops.kernels.probe_match import gemm_rowmin, packed_top2
     from points_matching_tpu_torch.ops.kernels.probe_score import score_variant
     from points_matching_tpu_torch.ops.kernels.ransac_kernel import ransac_score_hypotheses
+    from points_matching_tpu_torch.ops.kernels.segment_sum import segment_sum
 
     return {
         "fused_l2_top2": fused_l2_top2,
@@ -43,6 +46,7 @@ def _wrappers():
         "gemm_rowmin": gemm_rowmin,
         "packed_top2": packed_top2,
         "score_variant": score_variant,
+        "segment_sum": segment_sum,
     }
 
 

@@ -12,7 +12,8 @@ here by hand:
 * bytes: each input read once, each output written once;
 * operations: in the unit the kernel is bound by — fp32 FMA flops (an FMA
   is two) for K1, one instruction per unfused fp32 operation for K2 and K3
-  (built with ``--fmad=false``), population counts for K4.  Where the work
+  (built with ``--fmad=false``) and for the segmented sum's f32 adds (its
+  f64 adds at the fp64 rate), population counts for K4.  Where the work
   depends on the data it is counted from the inputs: a masked train row of
   K1 or K4 needs no distance, so only the valid rows count.
 * a kernel that spends two units — the probes' tensor-core kernels: bf16
@@ -25,12 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
 # which entry of ``chip_peaks`` is the rate of each unit
 UNIT_RATE = {"flops": "flops", "instr": "instr_per_s", "popc": "popc_per_s",
-             "bf16_tc": "bf16_tc_flops"}
+             "bf16_tc": "bf16_tc_flops", "f64_instr": "f64_instr_per_s"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,3 +215,18 @@ def probe_score_work(F_h, p1, p2, mask, threshold=None, gate="multiply",
         return Work(nbytes, cells * per_cell, "instr")
     return Work(nbytes, cells * 5 * 3 * 2 * PASSES[products], "bf16_tc",
                 ((cells * per_cell, "instr"),))
+
+
+def segment_sum_work(values, plan) -> Work:
+    """The segmented sum: the valid entries' values and ``perm`` read once
+    (masked entries lie past ``offsets[n]`` and are not read), ``offsets``
+    and the kernel's ``pieces`` read once, the output written once; m − 1
+    additions an element of a row of m entries."""
+    n = plan.num_rows
+    lengths = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    valid, nonempty = int(lengths.sum()), int((lengths > 0).sum())
+    W = math.prod(values.shape[1:])
+    es = values.element_size()
+    nbytes = es * W * (valid + n) + 4 * valid + 2 * 4 * (n + 1)
+    unit = "f64_instr" if values.dtype == torch.float64 else "instr"
+    return Work(nbytes, (valid - nonempty) * W, unit)

@@ -11,8 +11,8 @@ Two entry points, as in the reference:
   divide the group, as in the reference.
 * ``distributed_bundle_adjust_sparse`` — the observation list split over
   the group (``ba/sparse.py``'s ``group`` path): poses and landmarks stay
-  replicated, every per-observation sum is a local ``index_add_`` plus one
-  ``all_reduce``.  The observations are padded with masked rows to a
+  replicated, every per-observation sum is a local segmented sum (through
+  this rank's plans) plus one ``all_reduce``.  The observations are padded with masked rows to a
   multiple of the group size, which adds nothing to any sum.
 
 Both return the full state (landmarks gathered) and the same stats on every

@@ -32,13 +32,14 @@ _CHIP_PEAKS = {
     # arithmetic-instruction throughput for compute capability 9.0: 128
     # fp32 results and 16 population counts per clock per SM, so one
     # instruction per op is half the flop rate and a population count
-    # 16/128 of that.
+    # 16/128 of that; 64 fp64 results a clock an SM, half the fp32 rate.
     "h100": dict(flops=67e12, hbm_gbps=3350.0, instr_per_s=33.5e12,
-                 popc_per_s=33.5e12 * 16 / 128, bf16_tc_flops=989e12),
+                 popc_per_s=33.5e12 * 16 / 128, bf16_tc_flops=989e12,
+                 f64_instr_per_s=33.5e12 / 2),
     # the JAX package's CPU row; its instruction and popcount rates follow
     # the same ratios, and it has no matrix unit beyond its flop rate
     "cpu": dict(flops=1e12, hbm_gbps=100.0, instr_per_s=0.5e12,
-                popc_per_s=0.5e12 * 16 / 128, bf16_tc_flops=1e12),
+                popc_per_s=0.5e12 * 16 / 128, bf16_tc_flops=1e12, f64_instr_per_s=0.25e12),
 }
 
 

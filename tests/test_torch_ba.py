@@ -166,7 +166,8 @@ def test_sparse_residuals_jacobians_and_normal_equations(sparse):
                                    atol=1e-4 * np.abs(b).max(), err_msg=name)
     # one PCG solve on the reference's blocks, lm_fixed rows held
     lam = 1e-2
-    eq_in = tsp.SparseNormalEq(*(_t(x) for x in eqj[:5]), cam=eqt.cam, lm=eqt.lm)
+    eq_in = tsp.SparseNormalEq(*(_t(x) for x in eqj[:5]), cam=eqt.cam, lm=eqt.lm,
+                               cam_plan=eqt.cam_plan, lm_plan=eqt.lm_plan)
     dcj, dlj = jax.jit(jsp.solve_sparse_schur_pcg, static_argnames="iterations")(
         eqj, jnp.float32(lam), iterations=20, lm_fixed=js.lm_fixed)
     dct, dlt = tsp.solve_sparse_schur_pcg(eq_in, torch.tensor(lam), 20,

@@ -1301,3 +1301,196 @@ def test_probe_wrappers_raise_on_bad_inputs(dev):
         pm.gemm_rowmin(q, q, _design="cluster")
     with pytest.raises(ValueError):
         ps.score_variant(F, p.cpu(), p, m, 1.0)
+
+
+# -- the segmented sum (ops/kernels/segment_sum.py) ----------------------------------
+
+def _seg_case(gen, lengths, width, dtype, dev, masked=0.0):
+    """Rows of the given lengths, their entries shuffled over the index, and
+    a fraction ``masked`` of extra entries left out by the mask."""
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+
+    rows = torch.repeat_interleave(torch.arange(len(lengths)), torch.tensor(lengths))
+    extra = int(masked * rows.numel())
+    index = torch.cat([rows, torch.randint(0, max(len(lengths), 1), (extra,))])
+    mask = torch.cat([torch.ones(rows.numel(), dtype=torch.bool),
+                      torch.zeros(extra, dtype=torch.bool)])
+    order = torch.randperm(index.numel(), generator=torch.Generator().manual_seed(len(lengths)))
+    index, mask = index[order].to(dev), mask[order].to(dev)
+    values = torch.randn(index.numel(), width, generator=gen, device=dev, dtype=dtype)
+    return values, ss.build_plan(index, len(lengths), mask)
+
+
+def _check_seg(values, plan):
+    """The kernel against the plain version in float64 within the kernel's
+    rounding bound; a second launch equal to the first bit for bit."""
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+
+    before = ss.segment_sum.launches
+    got = ss.segment_sum(values, plan)
+    assert ss.segment_sum.launches == before + 1
+    ref = ss.segment_sum_plain(values.double(), plan)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == values.dtype
+    assert bool(((got.double() - ref).abs() <= ss.rounding_bound(values, plan)).all())
+    assert torch.equal(ss.segment_sum(values, plan), got)
+    return got
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 3), (torch.float32, 6),
+                                         (torch.float32, 9), (torch.float32, 36),
+                                         (torch.float64, 3), (torch.float64, 6),
+                                         (torch.float64, 9), (torch.float64, 36)])
+def test_segment_sum_kernel_matches_plain_each_instance(dev, dtype, width):
+    """Every instance on rows of 0 to 600 entries with a fifth of the
+    entries masked (short rows, one piece, several pieces)."""
+    gen = torch.Generator(device=dev).manual_seed(width)
+    lengths = [int(x) for x in torch.randint(0, 600, (300,), generator=torch.Generator()
+                                             .manual_seed(1))]
+    lengths[:4] = [0, 1, 256, 257]
+    _check_seg(*_seg_case(gen, lengths, width, dtype, dev, masked=0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_kernel_long_and_empty_segments(dev, dtype):
+    """Segments of 0, 1, 2,048 and 131,072 entries in one plan."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    got = _check_seg(*_seg_case(gen, [0, 1, 2048, 131072], 6, dtype, dev))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 40, 36), (283, 20, 12, 9), (5, 4541, 2, 6)])
+def test_segment_sum_kernel_batch_equals_each_problem_alone(dev, shape):
+    """S problems side by side (rows s·n + r, ``flat_rows``, a tenth of the
+    entries masked) give each problem the bits it gets alone."""
+    from points_matching_tpu_torch.core.types import flat_rows
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+
+    S, n, per, width = shape
+    gen = torch.Generator(device=dev).manual_seed(S)
+    index = torch.randint(0, n, (S, n * per), generator=gen, device=dev)
+    mask = torch.rand(S, n * per, generator=gen, device=dev) > 0.1
+    values = torch.randn(S, n * per, width, generator=gen, device=dev)
+    batch = _check_seg(values.reshape(-1, width),
+                       ss.build_plan(flat_rows(index, n), S * n, mask))
+    for s in (0, S // 2, S - 1):
+        alone = ss.segment_sum(values[s], ss.build_plan(index[s], n, mask[s]))
+        assert torch.equal(batch[s * n:(s + 1) * n], alone)
+
+
+def test_segment_sum_wrapper_raises_on_bad_inputs(dev):
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+
+    plan = ss.build_plan(torch.randint(0, 4, (10,), device=dev), 4)
+    with pytest.raises(ValueError):                    # no instance of width 5
+        ss.segment_sum(torch.randn(10, 5, device=dev), plan)
+    with pytest.raises(ValueError):                    # no f16 instance
+        ss.segment_sum(torch.randn(10, 3, device=dev, dtype=torch.float16), plan)
+    with pytest.raises(ValueError):
+        ss.segment_sum(torch.randn(10, 3), plan)
+    v = torch.randn(11, 3, device=dev)[1:]             # off 16 bytes: copied, same sums
+    assert torch.equal(ss.segment_sum(v, plan), ss.segment_sum(v.clone(), plan))
+
+
+def _no_scatter_add():
+    """A dispatch mode that fails on ``index_add`` and on
+    ``index_put(accumulate=True)`` of a CUDA tensor."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class NoScatterAdd(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__.rstrip("_")
+            accumulate = name in ("index_put", "_index_put_impl") and (
+                kwargs.get("accumulate") or (len(args) > 3 and args[3]))
+            if (name == "index_add" or accumulate) and args[0].is_cuda:
+                raise AssertionError(f"{func} on a CUDA tensor")
+            return func(*args, **kwargs)
+
+    return NoScatterAdd()
+
+
+def test_sparse_ba_auto_layout_is_reproducible_and_scatter_free(dev):
+    """``bundle_adjust_sparse`` with ``obs_layout='auto'`` on the card: no
+    ``index_add_``, the segmented sum launched, two runs equal bit for bit;
+    ``'scatter'`` runs the same plans: no ``index_add_``, the same bits."""
+    from points_matching_tpu_torch.ba.sparse import bundle_adjust_sparse, make_sparse_ba_state
+    from points_matching_tpu_torch.core.config import BAConfig
+    from points_matching_tpu_torch.core.types import CameraIntrinsics
+    from points_matching_tpu_torch.data.synthetic import make_sparse_ba_problem
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+
+    prob = make_sparse_ba_problem(seed=1, num_cameras=16, num_landmarks=2048,
+                                  obs_per_landmark=8, device=dev)
+    K = CameraIntrinsics.from_matrix(prob["K"])
+    state = make_sparse_ba_state(prob["poses"], prob["X"], prob["cam_idx"], prob["lm_idx"],
+                                 prob["uv"], prob["obs_mask"])
+    cfg = BAConfig(max_iterations=5, rtol=0.0, pcg_iterations=20)
+    before = ss.segment_sum.launches
+    with _no_scatter_add():
+        a, sa = bundle_adjust_sparse(state, K, cfg)
+    assert ss.segment_sum.launches > before
+    b, sb = bundle_adjust_sparse(state, K, cfg)
+    assert torch.equal(a.X, b.X) and torch.equal(a.poses.t, b.poses.t)
+    assert torch.equal(sa.final_cost, sb.final_cost)
+    with _no_scatter_add():
+        c, sc = bundle_adjust_sparse(state, K, dataclasses.replace(cfg, obs_layout="scatter"))
+    assert float(sa.final_cost) < float(sa.initial_cost)
+    assert torch.equal(a.X, c.X) and torch.equal(sc.final_cost, sa.final_cost)
+
+
+def test_sparse_ba_float64_on_the_card(dev):
+    """A float64 state under the default layout runs the kernel's f64
+    instances (W = 36, 6, 9, 3) on the card, reaches no ``index_add_``, gives
+    the same bits twice, and ends within 1e-6 of the float64 run on the
+    CPU (relative cost)."""
+    from points_matching_tpu_torch.ba.sparse import bundle_adjust_sparse, make_sparse_ba_state
+    from points_matching_tpu_torch.core.config import BAConfig
+    from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
+    from points_matching_tpu_torch.data.synthetic import make_sparse_ba_problem
+    from points_matching_tpu_torch.ops.kernels import segment_sum as ss
+
+    prob = make_sparse_ba_problem(seed=2, num_cameras=8, num_landmarks=512,
+                                  obs_per_landmark=6, device="cpu")
+    K = CameraIntrinsics.from_matrix(prob["K"].double())
+    poses = Pose(R=prob["poses"].R.double(), t=prob["poses"].t.double())
+    state = make_sparse_ba_state(poses, prob["X"].double(), prob["cam_idx"], prob["lm_idx"],
+                                 prob["uv"].double(), prob["obs_mask"])
+    cfg = BAConfig(max_iterations=5, rtol=0.0, pcg_iterations=20)
+    on_card = dataclasses.replace(
+        state, poses=Pose(R=poses.R.to(dev), t=poses.t.to(dev)),
+        **{f: getattr(state, f).to(dev) for f in ("X", "cam_idx", "lm_idx", "uv", "obs_mask",
+                                                   "cam_fixed", "lm_fixed")})
+    Kd = K.to(dev)
+    before = ss.segment_sum.launches
+    with _no_scatter_add():
+        a, sa = bundle_adjust_sparse(on_card, Kd, cfg)
+    assert ss.segment_sum.launches > before and a.X.dtype == torch.float64
+    b, sb = bundle_adjust_sparse(on_card, Kd, cfg)
+    assert torch.equal(a.X, b.X) and torch.equal(sa.final_cost, sb.final_cost)
+    _, sc = bundle_adjust_sparse(state, K, cfg)
+    assert float(sa.final_cost) < float(sa.initial_cost)
+    torch.testing.assert_close(sa.final_cost.cpu(), sc.final_cost, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_pose_graph_is_reproducible_and_scatter_free(dev, solver):
+    """``optimize_pose_graph`` on the card reaches no scatter-add and gives
+    the same bits twice."""
+    from points_matching_tpu_torch.ba.pose_graph import make_odometry_chain, optimize_pose_graph
+    from points_matching_tpu_torch.core.types import Pose
+    from points_matching_tpu_torch.geometry.se3 import so3_exp
+
+    n = 200
+    ang = torch.linspace(0.0, 2 * 3.14159, n)
+    R = so3_exp(torch.stack([torch.zeros_like(ang), ang, torch.zeros_like(ang)], -1))
+    t = torch.stack([5.0 * torch.cos(ang), torch.zeros_like(ang), 5.0 * torch.sin(ang)], -1)
+    noise = 0.01 * torch.randn(n - 1, 6, generator=torch.Generator().manual_seed(4))
+    g = make_odometry_chain(Pose(R=R, t=t), noise=noise, loop_edges=((0, n - 1), (20, 150)))
+    g0 = g.replace(poses=Pose(R=R @ so3_exp(0.03 * torch.randn(n, 3)), t=t + 0.05)).to(dev)
+    with _no_scatter_add():
+        a, sa = optimize_pose_graph(g0, solver=solver)
+    b, sb = optimize_pose_graph(g0, solver=solver)
+    assert torch.equal(a.poses.R, b.poses.R) and torch.equal(a.poses.t, b.poses.t)
+    assert torch.equal(sa.final_cost, sb.final_cost)
+    assert float(sa.final_cost) < 0.5 * float(sa.initial_cost)

@@ -129,3 +129,22 @@ def test_sampson_audit_epilines(scene):
         jl = np.asarray(jf.compute_epilines(jnp.asarray(p1), which, jnp.asarray(F)))
         tl = tf.compute_epilines(_t(p1), which, _t(F)).numpy()
         _close(tl, jl)
+
+
+def test_from_homogeneous_matches_reference():
+    """``from_homogeneous`` against the JAX package's on the same points,
+    with last coordinates of ordinary size, within ``eps`` of 0 on both
+    sides, and exactly 0: the same division, the same clamp."""
+    from points_matching_tpu.geometry.homogeneous import from_homogeneous as j_from_h
+    from points_matching_tpu_torch.geometry.homogeneous import from_homogeneous, to_homogeneous
+
+    x = np.random.RandomState(3).randn(4, 16, 4).astype(np.float32)
+    x[0, :4, -1] = [1e-14, -1e-14, 0.0, 2e-12]
+    got = from_homogeneous(_t(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_from_h(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        from_homogeneous(_t(x), eps=1e-3).numpy(), np.asarray(j_from_h(jnp.asarray(x), 1e-3)))
+    p = _t(x[..., :3])
+    assert torch.equal(from_homogeneous(to_homogeneous(p)), p)
+    assert got[0, 0, 0] == x[0, 0, 0] / np.float32(1e-12)
+    assert got[0, 1, 0] == x[0, 1, 0] / np.float32(-1e-12)

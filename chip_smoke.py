@@ -6,11 +6,13 @@ SLAM demo on sequences from disk) once on one CUDA GPU, and the probes'
 tensor-core kernels (P1, P2, the score variants) through the port's probe
 scripts.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
 
 (``python3 chip_smoke.py --dslam-worker RANK PORT OUT`` is one of the two
 processes of the ``distributed`` phase's world-size-2 run, which the script
-starts itself.)
+starts itself.)  ``--parent TREE``: an earlier checkout (``git archive``
+unpacked into a directory that ``.gitignore`` lists) whose segmented-sum
+kernel the ``segment_sum`` phase times in turns with this one.
 
 Phases, in order, one line each and their seconds at the end; any failure
 exits non-zero before the result line:
@@ -112,13 +114,17 @@ exits non-zero before the result line:
              graph's sums, ``ops/kernels/segment_sum.py``) against its plain
              version at its paths' shapes: the ``ba`` phase's camera and
              landmark plans, config 4's full-length batch of 283 windowed
-             BAs, the pose graph at P = 4,541 (f64); within the kernel's
-             rounding bound of the plain version in float64, two launches
-             equal bit for bit, a batch equal
+             BAs, the pose graph at P = 4,541 (f64) and the dense pose
+             graph's block plan at P = 100 (10,000 rows, f64); equal bit for
+             bit to its order in plain PyTorch (``segment_sum_ordered``),
+             within the kernel's rounding bound of the plain version in
+             float64, two launches equal bit for bit, a batch equal
              to each problem alone bit for bit; kernel ms (graph replays)
-             beside the plain version's, the bound, ``torch.index_add``
-             (atomics) and ``index_put_(accumulate=True)`` under
-             deterministic algorithms.
+             beside the plain version's, the bound and its share,
+             ``torch.index_add`` (atomics) and ``index_put_(accumulate=True)``
+             under deterministic algorithms, ptxas's registers; with
+             ``--parent``, the earlier tree's kernel in turns and its
+             wrapper's host enqueue.
    ba      — ``bundle_adjust_sparse`` at the JAX bench's BA shape (64 cameras
              × 16,384 landmarks × 131,072 observations) under ``obs_layout``
              'auto', 'scatter', 'auto' (one path): the cost must fall; ms per
@@ -794,31 +800,100 @@ def _host_us(fn, n: int = 500) -> float:
     return us
 
 
-def _segment_sum(dev) -> dict:
+def _seg_registers(csrc: str) -> dict:
+    """ptxas's registers a thread for each kernel of ``csrc/segment_sum.cu``
+    (the build's flags and ``-Xptxas -v``), keyed by (dtype, W) and then by
+    kernel: ``{("float64", 36): {"segment_sum_kernel": 40}, ...}``."""
+    import re
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    from probe_eightpoint_torch import ptxas_report
+
+    regs = {}
+    for row in ptxas_report(csrc, "segment_sum.cu"):
+        m = re.search(r"\d+(segment_[a-z_]+_kernel)I([fd])Li(\d+)E", row["kernel"])
+        if m and "registers" in row:
+            key = ("float64" if m.group(2) == "d" else "float32", int(m.group(3)))
+            regs.setdefault(key, {})[m.group(1)] = row["registers"]
+    return regs
+
+
+def _parent_segment_sum(tree: str):
+    """An earlier tree's ``ops/kernels/segment_sum.py`` run against its own
+    ``csrc/segment_sum.cu``, built alone with this build's flags into
+    ``build/parent_segment_sum/``: the module, with its ``_build`` swapped
+    for one that loads that library (C entry: values, perm, offsets, pieces,
+    piece_rows, out, part, n, W, max_pieces, f64, stream)."""
+    import ctypes
+    import importlib.util
+    import types
+
+    from points_matching_tpu_torch.ops.kernels import _build
+
+    csrc = os.path.join(tree, "points_matching_tpu_torch", "csrc")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "parent_segment_sum", "libparent_segment_sum.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", out,
+                           os.path.join(csrc, "segment_sum.cu")], capture_output=True, text=True)
+    _check(proc.returncode == 0, f"the parent's segment_sum.cu did not build:\n{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    lib.pmt_segment_sum.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pmt_segment_sum.restype = ctypes.c_int
+    spec = importlib.util.spec_from_file_location(
+        "parent_segment_sum", os.path.join(tree, "points_matching_tpu_torch", "ops", "kernels",
+                                           "segment_sum.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def check(_lib, rc, name):
+        _check(rc == 0, f"parent {name}: CUDA error {rc}")
+
+    mod._build = types.SimpleNamespace(library=lambda: lib, check=check)
+    return mod, _seg_registers(csrc)
+
+
+def _segment_sum(dev, parent_tree=None) -> dict:
     """The segmented-sum kernel against its plain version at the shapes of
     its paths: the ``ba sparse`` phase's camera and landmark plans (64 ×
     16,384 × 131,072; W = 36, 6 and 9, 3), config 4's full-length batch of
     283 windowed BAs (20 cameras, 2,048 landmarks, 8,192 observations a
     segment, 60 % valid; the [S·C] rows at W = 36 and the [S·L] rows at W =
-    9) and the pose graph at P = 4,541 (the ``pose graph`` phase's circuit;
-    endpoints [ei; ej], f64 at W = 6 and 36).  Each within the kernel's
-    rounding bound (``segment_sum.rounding_bound``) of the plain version
-    in float64 (``max_abs_err`` is that gap), two launches equal bit
-    for bit, and a batch equal to each problem alone bit for bit (config 4:
-    each of the 283 segments; the others: two copies side by side); kernel
-    ms (CUDA-graph replays) beside the plain version's, the bound and the
-    two library calls.  At the pose graph's W = 6 also the host's µs to
-    enqueue a call, against the sums before the plans, ``torch.zeros`` +
-    ``index_add_``."""
+    9), the pose graph at P = 4,541 (the ``pose graph`` phase's circuit;
+    endpoints [ei; ej], f64 at W = 6 and 36) and the dense pose graph's
+    block plan at P = 100 (P² = 10,000 (row, column) blocks, mostly empty,
+    f64 at W = 36, as ``close_loops`` runs it).  Each equal bit for bit to
+    its order in plain PyTorch (``segment_sum.segment_sum_ordered``), within
+    the kernel's rounding bound (``segment_sum.rounding_bound``) of the
+    plain version in float64 (``max_abs_err`` is that gap), two launches
+    equal bit for bit, and a batch equal to each problem alone bit for bit
+    (config 4: each of the 283 segments; the others: two copies side by
+    side); kernel ms (CUDA-graph replays) beside the plain version's, the
+    bound and its share, the two library calls and the factor against
+    ``index_add``, and ptxas's registers of the instance.  With
+    ``parent_tree`` (an earlier checkout, ``--parent``) also that tree's
+    kernel on the same values, timed in turns with this one (this,
+    parent, parent, this; each the mean of its two turns) and its
+    registers.  At the pose graph's W = 6 also the host's µs to enqueue a
+    call, against ``torch.zeros`` + ``index_add_`` (the sums before the
+    plans) and the parent's wrapper."""
     import torch
 
-    from points_matching_tpu_torch.ba.pose_graph import make_odometry_chain
+    from points_matching_tpu_torch.ba.pose_graph import _block_plan, make_odometry_chain
     from points_matching_tpu_torch.ba.sparse import make_sparse_ba_state, sparse_plans
     from points_matching_tpu_torch.core.types import flat_rows
     from points_matching_tpu_torch.data.synthetic import make_sparse_ba_problem
     from points_matching_tpu_torch.ops.kernels import segment_sum as ss
     from points_matching_tpu_torch.utils.profiling import cuda_event_ms, cuda_graph_ms
 
+    here = os.path.dirname(os.path.abspath(__file__))
+    regs = _seg_registers(os.path.join(here, "points_matching_tpu_torch", "csrc"))
+    print(f"segment sum: ptxas registers a thread {regs}")
+    parent, parent_regs = _parent_segment_sum(parent_tree) if parent_tree else (None, {})
+    if parent is None:
+        print("segment sum: no --parent tree given; the earlier design is not measured")
+    else:
+        print(f"segment sum: the parent's kernels ({parent_tree}), ptxas registers {parent_regs}")
     gen = torch.Generator(device=dev).manual_seed(14)
     prob = make_sparse_ba_problem(seed=1, num_cameras=64, num_landmarks=16384,
                                   obs_per_landmark=8, device=dev)
@@ -832,6 +907,13 @@ def _segment_sum(dev) -> dict:
     g = make_odometry_chain(_circuit_poses(P, 500, dev), torch.Generator(device=dev).manual_seed(P),
                             loop_edges=tuple((i, i + 500) for i in range(0, P - 500, 500)))
     ends = torch.cat([g.edges_i, g.edges_j]).long()
+    # the dense solve's block plan, as the pose graph phase's P = 100 graph gives it
+    P1 = 100
+    g1 = make_odometry_chain(_circuit_poses(P1, P1 - 1, dev),
+                             torch.Generator(device=dev).manual_seed(P1), odom_noise=0.01,
+                             loop_edges=((0, P1 - 1),), loop_weight=20.0)
+    ei, ej = g1.edges_i.long(), g1.edges_j.long()
+    blocks = torch.cat([ei * P1 + ei, ej * P1 + ej, ei * P1 + ej, ej * P1 + ei])
     # (tag, index [S', R'] of S' problems, rows a problem, mask, widths, dtype)
     cases = [("ba sparse cameras", ba.cam_idx.long()[None], 64, ba.obs_mask[None], (36, 6),
               torch.float32),
@@ -840,18 +922,22 @@ def _segment_sum(dev) -> dict:
              ("config4 cameras", c4_cam, C, c4_mask, (36,), torch.float32),
              ("config4 landmarks", c4_lm, L, c4_mask, (9,), torch.float32),
              ("pose graph P=4541", ends[None], P, torch.ones_like(ends[None], dtype=torch.bool),
-              (6, 36), torch.float64)]
-    # the BA's plans come from the BA's own builder
+              (6, 36), torch.float64),
+             ("pose graph dense P=100", blocks[None], P1 * P1,
+              torch.ones_like(blocks[None], dtype=torch.bool), (36,), torch.float64)]
+    # the BA's plans come from sparse_plans, the dense one from the pose graph's _block_plan
     cp, lp = sparse_plans(ba)
+    own = {"ba sparse cameras": cp, "ba sparse landmarks": lp,
+           "pose graph dense P=100": _block_plan(g1)}
     out = []
     for tag, index, n, mask, widths, dtype in cases:
         B, R = index.shape
         plan = ss.build_plan(flat_rows(index, n), B * n, mask)
         keys = torch.where(mask, flat_rows(index, n), B * n).reshape(-1)
-        if tag.startswith("ba sparse"):
-            one = cp if tag.endswith("cameras") else lp
-            _check(all(torch.equal(a, b) for a, b in zip(one[:4], plan[:4])),
-                   f"segment sum {tag}: the BA's plan differs")
+        if tag in own:
+            _check(all(torch.equal(a, b) for a, b in zip(own[tag][:4], plan[:4])),
+                   f"segment sum {tag}: the path's own plan differs")
+        pplan = parent.build_plan(flat_rows(index, n), B * n, mask) if parent else None
         # the batch of the check: config 4's own 283, else two copies side by side
         bidx, bmask = (index, mask) if B > 1 else (index.expand(2, -1), mask.expand(2, -1))
         bplan = plan if B > 1 else ss.build_plan(flat_rows(bidx, n), 2 * n, bmask)
@@ -865,6 +951,7 @@ def _segment_sum(dev) -> dict:
                                                        dtype=dtype)
             bgot = got if B > 1 else ss.segment_sum(bvalues, bplan)
             torch.cuda.synchronize()
+            ordered = torch.equal(got, ss.segment_sum_ordered(values, plan))
             err = float((got.double() - ref).abs().max())
             within = bool(((got.double() - ref).abs() <= tol).all())
             twice = torch.equal(got, again)
@@ -872,29 +959,50 @@ def _segment_sum(dev) -> dict:
                 bvalues[s * R:(s + 1) * R], ss.build_plan(bidx[s], n, bmask[s])))
                 for s in range(bidx.shape[0]))
             bound = _bound_of(ss.segment_sum, values, plan)
-            ms = cuda_graph_ms(lambda: ss.segment_sum(values, plan))
+            turns = {"this": [], "parent": []}
+            for who in ("this", "parent", "parent", "this"):
+                if who == "this":
+                    turns[who].append(cuda_graph_ms(lambda: ss.segment_sum(values, plan)))
+                elif parent:
+                    turns[who].append(cuda_graph_ms(lambda: parent.segment_sum(values, pplan)))
+            ms = sum(turns["this"]) / 2
+            parent_ms = sum(turns["parent"]) / 2 if parent else None
             pms = cuda_event_ms(lambda: ss.segment_sum_plain(values, plan))
             lib = _seg_library_ms(values, keys, B * n)
             valid = int(plan.offsets[-1])
+            key = (str(dtype)[6:], W)
+            reg = regs.get(key, {}).get("segment_sum_kernel")
+            preg = parent_regs.get(key)
+            was = (f"; the parent's design {parent_ms:.5f} ms ({parent_ms / ms:.2f}x this one), "
+                   f"registers {preg}" if parent else "")
             print(f"segment sum {tag} {B} x {n} rows x {R} entries ({valid} valid), W = {W} "
-                  f"{str(dtype)[6:]}: max |kernel - plain| {err:.3g} (within the rounding "
-                  f"bound {within}), two launches equal {twice}, a batch of {bidx.shape[0]} "
-                  f"equal to each problem alone {alone}; {ms:.5f} ms vs plain {pms:.5f} ms, bound "
-                  f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), index_add "
-                  f"{lib['index_add_ms']:.5f} ms, deterministic index_put_ "
-                  f"{lib['index_put_deterministic_ms']:.5f} ms")
-            _check(within and twice and alone, f"segment sum {tag} W = {W}: disagrees")
+                  f"{str(dtype)[6:]}: equal to segment_sum_ordered {ordered}, max |kernel - "
+                  f"plain| {err:.3g} (within the rounding bound {within}), two launches equal "
+                  f"{twice}, a batch of {bidx.shape[0]} equal to each problem alone {alone}; "
+                  f"{ms:.5f} ms (turns {turns['this'][0]:.5f}, {turns['this'][1]:.5f}) vs plain "
+                  f"{pms:.5f} ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}; "
+                  f"{bound['bound_ms'] / ms:.1%} of it), index_add {lib['index_add_ms']:.5f} ms "
+                  f"(this one {ms / lib['index_add_ms']:.2f}x), deterministic index_put_ "
+                  f"{lib['index_put_deterministic_ms']:.5f} ms; {reg} registers{was}")
+            _check(ordered and within and twice and alone, f"segment sum {tag} W = {W}: disagrees")
             out.append(dict(case=tag, problems=B, rows=n, entries=R, valid=valid, width=W,
-                            dtype=str(dtype)[6:], max_abs_err=err, ms=ms, plain_ms=pms,
-                            **bound, library_ms=lib["index_add_ms"],
-                            library_deterministic_ms=lib["index_put_deterministic_ms"]))
-            if tag.startswith("pose graph") and W == 6:
+                            dtype=str(dtype)[6:], max_abs_err=err, equal_to_ordered=ordered,
+                            ms=ms, ms_turns=turns["this"], plain_ms=pms, **bound,
+                            bound_share=bound["bound_ms"] / ms, library_ms=lib["index_add_ms"],
+                            vs_index_add=ms / lib["index_add_ms"],
+                            library_deterministic_ms=lib["index_put_deterministic_ms"],
+                            registers=reg, parent_ms=parent_ms, parent_ms_turns=turns["parent"],
+                            parent_registers=preg))
+            if tag.startswith("pose graph P") and W == 6:
                 host = _host_us(lambda: ss.segment_sum(values, plan))
                 scatter = _host_us(lambda: torch.zeros(
                     (B * n, W), dtype=dtype, device=dev).index_add_(0, ends, values))
+                phost = _host_us(lambda: parent.segment_sum(values, pplan)) if parent else None
                 print(f"segment sum {tag} W = {W}: the host's enqueue {host:.2f} us a call "
-                      f"against {scatter:.2f} us for torch.zeros + index_add_")
-                out[-1].update(host_us=host, host_us_zeros_index_add=scatter)
+                      f"against {scatter:.2f} us for torch.zeros + index_add_"
+                      + (f" and {phost:.2f} us for the parent's wrapper" if parent else ""))
+                out[-1].update(host_us=host, host_us_zeros_index_add=scatter,
+                               host_us_parent=phost)
     return dict(cases=out)
 
 
@@ -2315,6 +2423,9 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--dslam-worker"]:
         return _dslam_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    parent_tree = None
+    if sys.argv[1:2] == ["--parent"]:
+        parent_tree = os.path.abspath(sys.argv[2])
 
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2674,7 +2785,7 @@ def main() -> int:
     # synthetic 32-d sequence, and sparse BA at the bench's size ---------------
     for phase, fn in (("sfm", lambda: _slice_sfm(dev, K)),
                       ("sfm32", lambda: _slice_sfm32(dev, K)),
-                      ("segment_sum", lambda: _segment_sum(dev)),
+                      ("segment_sum", lambda: _segment_sum(dev, parent_tree)),
                       ("ba", lambda: _ba_sparse(dev, K)),
                       ("pose_graph", lambda: _pose_graph(dev, K)),
                       ("all_pairs", lambda: _all_pairs(dev, K)),

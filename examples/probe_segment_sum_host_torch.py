@@ -2,7 +2,7 @@
 (``ops/kernels/segment_sum.py``) on the card, at the pose graph's shape
 (P = 4,541 poses, the 9,098 endpoints [ei; ej], float64, W = 6), beside
 the scatter it replaced (``torch.zeros`` + ``index_add_``) and the pieces
-of the wrapper: the C call alone (two kernel launches), the input checks,
+of the wrapper: the C call alone (one kernel launch), the input checks,
 the output's ``torch.empty``, the stream handle (``current_stream()``
 against the raw handle) and a ``torch.cat`` of two [E, 6] halves.
 
@@ -58,9 +58,12 @@ def main() -> int:
     ss.segment_sum(v, plan)                      # makes the plan's scratch
     part = plan.scratch[v.dtype, 6]
     stream = torch.cuda.current_stream().cuda_stream
+    long_blocks = min(plan.piece_rows.shape[0],
+                      ss.LONG_BLOCKS_PER_SM * _build.sm_count(dev.index or 0))
     c_args = (v.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
               plan.pieces.data_ptr(), plan.piece_rows.data_ptr(), out.data_ptr(),
-              part.data_ptr(), P, 6, plan.piece_rows.shape[0], 1, stream)
+              part.data_ptr(), plan.scratch["arrivals"].data_ptr(), P, 6, long_blocks, 1,
+              stream)
     rows = dict(
         segment_sum=lambda: ss.segment_sum(v, plan),
         zeros_index_add=lambda: torch.zeros((P, 6), dtype=v.dtype,

@@ -55,8 +55,9 @@ _SIGNATURES: Dict[str, list] = {
     "pmt_probe_packed_top2": [_P] * 7 + [_I] * 6 + [_P],
     # F, p1, p2, mask, counts, B, H, N, S, tau2, gate, products, design, stream
     "pmt_probe_score": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # values, perm, offsets, pieces, piece_rows, out, part, n, W, max_pieces, f64, stream
-    "pmt_segment_sum": [_P] * 7 + [_I] * 4 + [_P],
+    # values, perm, offsets, pieces, piece_rows, out, scratch, arrivals, n, W, long_blocks,
+    # f64, stream
+    "pmt_segment_sum": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 last_build: Dict[str, object] = {}

@@ -1322,8 +1322,9 @@ def _seg_case(gen, lengths, width, dtype, dev, masked=0.0):
 
 
 def _check_seg(values, plan):
-    """The kernel against the plain version in float64 within the kernel's
-    rounding bound; a second launch equal to the first bit for bit."""
+    """The kernel equal bit for bit to its order in plain PyTorch
+    (``segment_sum_ordered``) and within its rounding bound of the plain
+    version in float64; a second launch equal to the first bit for bit."""
     from points_matching_tpu_torch.ops.kernels import segment_sum as ss
 
     before = ss.segment_sum.launches
@@ -1332,6 +1333,7 @@ def _check_seg(values, plan):
     ref = ss.segment_sum_plain(values.double(), plan)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == values.dtype
+    assert torch.equal(got, ss.segment_sum_ordered(values, plan))
     assert bool(((got.double() - ref).abs() <= ss.rounding_bound(values, plan)).all())
     assert torch.equal(ss.segment_sum(values, plan), got)
     return got
@@ -1343,20 +1345,24 @@ def _check_seg(values, plan):
                                          (torch.float64, 9), (torch.float64, 36)])
 def test_segment_sum_kernel_matches_plain_each_instance(dev, dtype, width):
     """Every instance on rows of 0 to 600 entries with a fifth of the
-    entries masked (short rows, one piece, several pieces)."""
+    entries masked (short rows, one piece, several pieces), among them rows
+    on each side of a chunk (32) and of a piece (256)."""
     gen = torch.Generator(device=dev).manual_seed(width)
     lengths = [int(x) for x in torch.randint(0, 600, (300,), generator=torch.Generator()
                                              .manual_seed(1))]
-    lengths[:4] = [0, 1, 256, 257]
+    lengths[:8] = [0, 1, 31, 32, 33, 255, 256, 257]
     _check_seg(*_seg_case(gen, lengths, width, dtype, dev, masked=0.2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_segment_sum_kernel_long_and_empty_segments(dev, dtype):
-    """Segments of 0, 1, 2,048 and 131,072 entries in one plan."""
+    """Segments of 0, 1, 31, 32, 33, 255, 256, 257, 2,048 and 131,072
+    entries in one plan, at W = 6 and 36."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    got = _check_seg(*_seg_case(gen, [0, 1, 2048, 131072], 6, dtype, dev))
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    for width in (6, 36):
+        got = _check_seg(*_seg_case(gen, [0, 1, 31, 32, 33, 255, 256, 257, 2048, 131072],
+                                    width, dtype, dev))
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
 
 
 @pytest.mark.parametrize("shape", [(3, 8, 40, 36), (283, 20, 12, 9), (5, 4541, 2, 6)])

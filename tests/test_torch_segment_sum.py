@@ -45,10 +45,19 @@ def _case(name):
         mask = np.ones((3, 50), bool)
         mask[:, 40:] = False
         return flat_rows(torch.from_numpy(idx), 8).numpy(), 24, mask
+    if name == "lengths":           # rows on each side of a chunk and a piece, shuffled,
+        lengths = np.array(LENGTHS)  # then a masked tail of 50
+        idx = np.concatenate([rng.permutation(np.repeat(np.arange(lengths.size), lengths)),
+                              rng.randint(0, lengths.size, 50)])
+        return idx, lengths.size, np.arange(idx.size) < lengths.sum()
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("name", ["random", "one_row", "all_masked", "no_entries", "padded"])
+LENGTHS = (0, 1, 31, 32, 33, 255, 256, 257, 131072)   # entries a row of the "lengths" case
+
+
+@pytest.mark.parametrize("name", ["random", "one_row", "all_masked", "no_entries", "padded",
+                                  "lengths"])
 def test_plan_matches_numpy_stable_argsort_and_bincount(name):
     index, n, mask = _case(name)
     plan = ss.build_plan(torch.from_numpy(index), n, torch.from_numpy(mask))
@@ -57,7 +66,10 @@ def test_plan_matches_numpy_stable_argsort_and_bincount(name):
     np.testing.assert_array_equal(plan.perm.numpy(), np.argsort(keys, kind="stable"))
     np.testing.assert_array_equal(
         plan.offsets.numpy(), np.concatenate([[0], np.cumsum(np.bincount(valid, minlength=n))]))
-    starts = np.concatenate([[0], np.cumsum(-(-np.bincount(valid, minlength=n) // ss.PIECE))])
+    # pieces of PIECE entries for the long rows only
+    counts = np.bincount(valid, minlength=n)
+    starts = np.concatenate([[0], np.cumsum(np.where(counts > ss.SHORT,
+                                                     -(-counts // ss.PIECE), 0))])
     np.testing.assert_array_equal(plan.pieces.numpy(), starts)
     # each piece's row: the row whose pieces hold it; n past the last piece
     rows = np.searchsorted(starts, np.arange(ss.max_pieces(keys.size, n)), side="right") - 1
@@ -122,21 +134,94 @@ def test_segment_sum_plain_in_float64_and_its_checks():
 
 def test_rounding_bound_counts_the_kernels_roundings():
     """The card's tolerance (kernel against the float64 plain sum): γ of the
-    kernel's 5 + 7 + pieces − 1 roundings at f32 plus γ of the reference's
-    m − 1 at f64, times Σ|v|; a row that lost one chunk of 32 entries lies
-    beyond it."""
+    kernel's (32 − 1) + (8 − 1) + (pieces − 1) roundings at f32 (a chunk's,
+    a piece's, the row's) plus γ of the reference's m − 1 at f64, times
+    Σ|v|; a row that lost one chunk of 32 entries lies beyond it."""
     index, n, _ = _case("one_row")
     v = torch.from_numpy(np.random.RandomState(6).randn(index.size, 3).astype(np.float32))
     plan = ss.build_plan(torch.from_numpy(index), n)
     bound = ss.rounding_bound(v, plan)
     u, u64 = 2.0 ** -24, 2.0 ** -53
-    k, m = 5 + 7 + 3 - 1, index.size
+    k, m = 31 + 7 + 3 - 1, index.size
     want = (k * u / (1 - k * u) + (m - 1) * u64 / (1 - (m - 1) * u64)) * v.abs().double().sum(0)
     torch.testing.assert_close(bound[7], want, rtol=1e-12, atol=0)
     assert bound.dtype == torch.float64 and not bound[torch.arange(n) != 7].any()
     exact = ss.segment_sum_plain(v.double(), plan)
     dropped = exact[7] - v[ss.PIECE:ss.PIECE + 32].double().sum(0)
     assert bool(((dropped - exact[7]).abs() > bound[7]).all())
+
+
+def _order_by_loops(v, plan):
+    """The kernel's order written out entry by entry in numpy (the module
+    docstring): chunks of 32 from 0 in entry order, chunks in pieces of 8
+    from 0, pieces from 0, each add rounded to the values' dtype."""
+    perm, offsets = plan.perm.numpy(), plan.offsets.numpy()
+    zero = np.zeros(v.shape[1:], v.dtype)
+    out = []
+    for r in range(plan.num_rows):
+        rows = v[perm[offsets[r]:offsets[r + 1]]]
+        row = zero
+        for p in range(0, len(rows), 256):
+            piece = zero
+            for c in range(p, min(p + 256, len(rows)), 32):
+                chunk = zero
+                for e in rows[c:min(c + 32, p + 256, len(rows))]:
+                    chunk = chunk + e
+                piece = piece + chunk
+            row = row + piece
+        out.append(row)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segment_sum_ordered_adds_in_the_kernels_order(dtype):
+    """``segment_sum_ordered`` against the order written out as loops, bit
+    for bit: rows of 0 to 1,100 entries (one chunk, a partial piece,
+    several pieces), a fifth of the entries masked."""
+    lengths = np.array([0, 1, 2, 31, 32, 33, 64, 255, 256, 257, 300, 600, 1100])
+    rng = np.random.RandomState(11)
+    index = rng.permutation(np.repeat(np.arange(lengths.size), lengths))
+    mask = rng.rand(index.size) > 0.2
+    v = (rng.randn(index.size, 3) * 10.0 ** rng.randint(-3, 4, (index.size, 1))).astype(dtype)
+    plan = ss.build_plan(torch.from_numpy(index), lengths.size, torch.from_numpy(mask))
+    got = ss.segment_sum_ordered(torch.from_numpy(v), plan)
+    assert got.dtype == torch.from_numpy(v).dtype
+    np.testing.assert_array_equal(got.numpy(), _order_by_loops(v, plan))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_ordered_within_rounding_bound_of_plain(dtype):
+    """The kernel's order against the float64 plain sum within
+    ``rounding_bound``, at rows of 0, 1, 31, 32, 33, 255, 256, 257 and
+    131,072 entries with a masked tail; W = 36."""
+    index, n, mask = _case("lengths")
+    v = torch.from_numpy(np.random.RandomState(12).randn(index.size, 36)).to(dtype)
+    plan = ss.build_plan(torch.from_numpy(index), n, torch.from_numpy(mask))
+    got = ss.segment_sum_ordered(v, plan)
+    ref = ss.segment_sum_plain(v.double(), plan)
+    assert got.shape == (n, 36) and got.dtype == dtype
+    assert bool(((got.double() - ref).abs() <= ss.rounding_bound(v, plan)).all())
+    assert not got[0].any() and torch.equal(got[1], v[int(plan.perm[plan.offsets[1]])])
+
+
+def test_segment_sum_ordered_batch_equals_each_problem_alone_and_repeats():
+    """In the kernel's order, 3 problems side by side give each problem the
+    bits it gets alone (rows of up to 600 entries: several pieces), and two
+    calls give the same bits."""
+    S, n, O = 3, 6, 900
+    rng = np.random.RandomState(13)
+    idx = rng.randint(0, n, (S, O))
+    mask = rng.rand(S, O) > 0.1
+    v = rng.randn(S, O, 9).astype(np.float32)
+    batch_plan = ss.build_plan(flat_rows(torch.from_numpy(idx), n), S * n,
+                               torch.from_numpy(mask))
+    batch = ss.segment_sum_ordered(torch.from_numpy(v.reshape(S * O, 9)), batch_plan)
+    assert torch.equal(batch, ss.segment_sum_ordered(torch.from_numpy(v.reshape(S * O, 9)),
+                                                     batch_plan))
+    for s in range(S):
+        alone = ss.segment_sum_ordered(torch.from_numpy(v[s]), ss.build_plan(
+            torch.from_numpy(idx[s]), n, torch.from_numpy(mask[s])))
+        assert torch.equal(batch[s * n:(s + 1) * n], alone)
 
 
 def test_segment_sum_work_counts_valid_entries():

@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (two-view SURF and ORB, the staged
 two-view pipeline, the bench head's 64 pairs in one call, incremental SfM
-with loop closure, the pose graph, all-pairs scores, distributed SLAM, the
-SLAM demo on sequences from disk) once on one CUDA GPU, and the probes'
-tensor-core kernels (P1, P2, the score variants) through the port's probe
-scripts.
+with loop closure, the pose graph, the dense Schur BA and its
+landmark-sharded form, all-pairs scores, the all-pairs ring and the staged
+pipeline over several ranks, distributed SLAM, the SLAM demo on sequences
+from disk) once on one CUDA GPU, and the probes' tensor-core kernels (P1,
+P2, the score variants) through the port's probe scripts.
 
     python3 chip_smoke.py [--parent TREE]
 
-(``python3 chip_smoke.py --dslam-worker RANK PORT OUT`` is one of the two
-processes of the ``distributed`` phase's world-size-2 run, which the script
-starts itself.)  ``--parent TREE``: an earlier checkout (``git archive``
-unpacked into a directory that ``.gitignore`` lists) whose segmented-sum
-kernel the ``segment_sum`` phase times in turns with this one.
+(``python3 chip_smoke.py --rank-worker JOBS RANK WORLD PORT DIR`` is one
+rank of a gloo group of WORLD processes on this card, which the script
+starts itself for the phases that run over several ranks: it runs the
+comma-separated ``JOBS`` of ``RANK_JOBS`` — ``config4`` (the
+``distributed`` phase's world size 2), ``dense_ba`` (``ba_dense``),
+``ring`` and ``staged`` (``ranks``) — reads its inputs from
+``DIR/inputs.pt`` and writes its results to ``DIR/rank<RANK>.pt``.  The
+parent builds the kernels first; a worker only loads them.)  ``--parent
+TREE``: an earlier checkout (``git archive`` unpacked into a directory that
+``.gitignore`` lists) whose segmented-sum kernel the ``segment_sum`` phase
+times in turns with this one.
 
 Phases, in order, one line each and their seconds at the end; any failure
 exits non-zero before the result line:
@@ -136,6 +143,22 @@ exits non-zero before the result line:
              of 1,000 steps; the default 100 steps reported beside it): cost
              and mean translation error must fall; ms per GN iteration, host
              syncs, peak memory; a second run equal bit for bit.
+   ba_dense — the dense Schur BA (``ba/lm.bundle_adjust``, BASELINE config
+             2's two-view BA and the engine of bench.py's ``ba`` section) at
+             the bench's 32 cameras × 2,048 landmarks (``BA_DENSE``), a
+             perturbed start: Cholesky and PCG (50 steps), chunks of 25 LM
+             iterations at rtol 0 three times — the cost falls and stays
+             finite, the runs equal in every bit; ms per LM iteration, peak
+             memory, aten ops and host reads an iteration, the flop bound
+             (``work.dense_ba_iteration_work``) and its share; held to the
+             CPU with tests/test_torch_ba.py's bounds (first two steps 1e-3,
+             20 iterations 10 % / 1 %; after 1, 2 and 20 iterations, here
+             and at 6 × 64, cost, X, t within 4× the card's own move under
+             a 1e-7 / 1e-6 move of its landmarks).
+             ``distributed_bundle_adjust`` at
+             world size 1 over NCCL equal to it bit for bit, at 2 and 4 as
+             rank workers over gloo within tests/test_torch_parallel.py's
+             bounds (1 iteration cost 1e-4, X 1e-3; 5: 10 %).
    all_pairs — BASELINE config 1's sweep (bench.py ``bench_all_pairs``:
              1,024 × 256 × 64-d, ratio 0.8) through ``all_pairs_scores`` (the
              ring with ``mesh=None``: one step) on K1: seconds a sweep and
@@ -143,6 +166,16 @@ exits non-zero before the result line:
              1,024 against the plain version (differences only at f32
              near-ties of the ratio); a planted near-duplicate pair (7, 900)
              must be each other's best.
+   ranks   — paths over several ranks, as rank workers on this card over
+             gloo (seconds of processes sharing one card): the all-pairs
+             ring at 2 and 4 ranks of a data mesh, its [1,024, 1,024] scores
+             equal to the ``mesh=None`` sweep bit for bit, the planted pair
+             found, K1's launches a rank, the bytes a ``ring_shift`` moves;
+             the staged two-view at one rank a stage (4 ranks), SURF and
+             ORB on the ``staged`` phase's pairs and samples, every wire
+             field equal to world size 1 bit for bit, each stage's kernels
+             launched on its own rank only, ms a microbatch and the bubble
+             share.
    distributed — BASELINE config 4 on its stand-in (272 of KITTI 00's 4,541
              frames: 16 segments of 20, overlap 4, 3,000 landmarks, 256 ×
              32-d features, seed 5) through ``run_distributed_slam``: at
@@ -178,7 +211,8 @@ exits non-zero before the result line:
              pairs, distributed and slam numbers, one of the probes' rows,
              one of per-kernel numbers (launches by path: surf, orb, sfm,
              loop, all_pairs, staged, pairs, distributed, slam, probe, ba,
-             pose_graph; the segmented sum must have launched on sfm, loop,
+             ba_dense, pose_graph, ranks — the ranks' launches summed over
+             the workers; the segmented sum must have launched on sfm, loop,
              distributed, slam, ba and pose_graph), then
              the last line
              ``{"ok": true, "device": {...}}``.
@@ -195,8 +229,9 @@ Population counts (K4) retire at 16 per clock per SM against 128 fp32 lanes
 33.5e12 × 16/128 per second.  ``utils/profiling.roofline`` reads the same
 counts.
 
-Imports nothing of JAX.  Writes no files besides the kernel build and the
-``slam`` phase's sequences and checkpoint under a temporary directory.
+Imports nothing of JAX.  Writes no files besides the kernel build, the
+``slam`` phase's sequences and checkpoint, and the rank workers' inputs and
+results, under temporary directories.
 """
 from __future__ import annotations
 
@@ -375,8 +410,11 @@ def _k1_case(tag: str, nb: int, n1: int, n2: int, d: int, masked: float, gen, de
     _check(err <= 1e-5 and idx_bad == 0, f"K1 {tag} disagrees with plain")
     bound = _bound_of(fused_l2_top2, q, t, t_mask)
     ms, pms = measure(f"K1 f32 {tag}", fused_l2_top2, l2_top2_plain, (q, t, t_mask), bound)
+    lib_ms = _library_top2_ms(q, t, t_mask, "f32")
+    print(f"kernel K1 f32 {tag}: yardstick baddbmm + topk {lib_ms:.5f} ms (two calls)")
     return dict(shape=[nb, n1, n2, d], masked_train_rows=nb * n2 - valid, max_abs_err=err,
-                ms=ms, plain_ms=pms, **bound, library_ms=None)
+                ms=ms, plain_ms=pms, **bound, library_ms=lib_ms,
+                library_calls="two calls: torch.baddbmm + topk")
 
 
 def _ransac_case(tag: str, H: int, N: int, gen, dev, measure, min_best=None, P: int = 1
@@ -1195,6 +1233,37 @@ def _pose_graph(dev, K_mod) -> dict:
     return dict(out, launches=launches)
 
 
+# BASELINE config 1 (bench.py ``bench_all_pairs``): 1,024 images × 256
+# keypoints × 64-d, ratio 0.8; frame 7 planted as frame 900 plus noise
+ALL_PAIRS = dict(n=1024, k=256, d=64, ratio=0.8, twin=900)
+
+
+def _all_pairs_inputs(dev):
+    """Config 1's descriptors (``RandomState(3)``, L2-normalised, frame 7 a
+    noisy copy of frame ``twin``) and masks (every row valid) on ``dev``;
+    the same bits in every process."""
+    import torch
+
+    n, k, d, twin = (ALL_PAIRS[x] for x in ("n", "k", "d", "twin"))
+    rng = np.random.RandomState(3)
+    base = rng.randn(n, k, d).astype(np.float32)
+    base[7] = base[twin] + 0.01 * rng.randn(k, d).astype(np.float32)
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    return (torch.from_numpy(base).to(dev),
+            torch.ones(n, k, dtype=torch.bool, device=dev))
+
+
+def _planted_pair(scores) -> tuple:
+    """(best partner of frame 7, of frame ``twin``, their scores, the median
+    off-diagonal score) from [N, N] scores."""
+    twin = ALL_PAIRS["twin"]
+    off = scores.clone()
+    off.fill_diagonal_(-1)
+    best7, best_twin = int(off[7].argmax()), int(off[twin].argmax())
+    return (best7, best_twin, int(off[7, best7]),
+            float(off[off >= 0].float().median()))
+
+
 def _all_pairs(dev, K_mod) -> dict:
     """BASELINE config 1's all-pairs sweep at its published width
     (bench.py ``bench_all_pairs``): 1,024 images × 256 keypoints × 64-d, every
@@ -1210,14 +1279,8 @@ def _all_pairs(dev, K_mod) -> dict:
         all_pairs_scores, pair_scores_plain)
     from points_matching_tpu_torch.utils.profiling import chip_peaks
 
-    n, k, d, ratio = 1024, 256, 64, 0.8
-    twin = 900
-    rng = np.random.RandomState(3)
-    base = rng.randn(n, k, d).astype(np.float32)
-    base[7] = base[twin] + 0.01 * rng.randn(k, d).astype(np.float32)
-    base /= np.linalg.norm(base, axis=-1, keepdims=True)
-    desc = torch.from_numpy(base).to(dev)
-    mask = torch.ones(n, k, dtype=torch.bool, device=dev)
+    n, k, d, ratio, twin = (ALL_PAIRS[x] for x in ("n", "k", "d", "ratio", "twin"))
+    desc, mask = _all_pairs_inputs(dev)
     all_pairs_scores(desc[:16], mask[:16], ratio)                 # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1243,12 +1306,9 @@ def _all_pairs(dev, K_mod) -> dict:
     print(f"all pairs: block of 8 x {n} against the plain version: {n_diff} cells differ, "
           f"{bad} not explained by f32 near-ties of the ratio test")
     _check(bad == 0, "all pairs: K1 counts disagree with the plain version")
-    off = scores.clone()
-    off.fill_diagonal_(-1)
-    best7, best_twin = int(off[7].argmax()), int(off[twin].argmax())
+    best7, best_twin, score7, median = _planted_pair(scores)
     print(f"all pairs: planted pair 7 <-> {twin}: best partner of 7 is {best7} (score "
-          f"{int(off[7, best7])}), of {twin} is {best_twin}; median off-diagonal score "
-          f"{float(off[off >= 0].float().median()):.1f}")
+          f"{score7}), of {twin} is {best_twin}; median off-diagonal score {median:.1f}")
     _check(best7 == twin and best_twin == 7, "all pairs: the planted pair was not found")
     return dict(shape=[n, k, d], seconds=sec, pairs_per_s=n * n / sec, bound_s=bound_s,
                 bound_by="operations", launches=launches["fused_l2_top2"], peak_bytes=peak,
@@ -1332,6 +1392,38 @@ def _loop_closure(dev, K_mod, res, frames, K, cfg, gt, extent) -> dict:
                 gpu_vs_cpu_dR=dR, gpu_vs_cpu_dt=dt)
 
 
+def _staged_inputs(dev):
+    """The staged phases' 4 rendered 993×660 pairs (frames i, i + 1 of a
+    5-frame sequence) and their seeds: (img1, img2, seeds) on ``dev``."""
+    import torch
+
+    from points_matching_tpu_torch.data.render import render_sequence
+
+    imgs, *_ = render_sequence(num_frames=5, num_landmarks=500, image_size=(993, 660), seed=0)
+    im = torch.stack([torch.from_numpy(np.ascontiguousarray(i)) for i in imgs]).to(dev)
+    return im[:4].contiguous(), im[1:].contiguous(), torch.arange(4)
+
+
+def _staged_samples(w, cfg, dev):
+    """RANSAC minimal sets for each pair of a staged wire ``w``, drawn from
+    one seeded generator: (sp1, sp2), each [4, H, 8, 2]."""
+    import torch
+
+    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
+
+    H = cfg.ransac.num_hypotheses
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sp = [sample_minimal_points(gen, w["mmask"][i] != 0, H, 8, (w["p1"][i], w["p2"][i]))
+          for i in range(w["mmask"].shape[0])]
+    return torch.stack([x[0] for x in sp]), torch.stack([x[1] for x in sp])
+
+
+STAGED_CONFIGS = (("surf", "ransac", ("fused_l2_top2", "minimal_eight_point",
+                                      "ransac_score_hypotheses")),
+                  ("orb", "orb", ("fused_hamming_top2", "minimal_eight_point",
+                                  "ransac_score_hypotheses")))
+
+
 def _staged(dev, K_mod) -> dict:
     """``staged_two_view`` at world size 1 (its four stages composed on the
     card) on 4 rendered 993×660 pairs (frames i, i + 1 of a 5-frame
@@ -1344,21 +1436,13 @@ def _staged(dev, K_mod) -> dict:
     import torch
 
     from points_matching_tpu_torch.core.config import named_config
-    from points_matching_tpu_torch.data.render import render_sequence
-    from points_matching_tpu_torch.geometry.ransac import sample_minimal_points
     from points_matching_tpu_torch.pipelines.staged_two_view import staged_two_view
     from points_matching_tpu_torch.pipelines.two_view import two_view_pipeline
 
-    imgs, *_ = render_sequence(num_frames=5, num_landmarks=500, image_size=(993, 660), seed=0)
-    im = torch.stack([torch.from_numpy(np.ascontiguousarray(i)) for i in imgs]).to(dev)
-    img1, img2 = im[:4].contiguous(), im[1:].contiguous()
-    seeds = torch.arange(4)
+    img1, img2, seeds = _staged_inputs(dev)
     out, launches = {}, {}
-    for tag, cfg, kernels in (
-            ("surf", named_config("ransac"),
-             ("fused_l2_top2", "minimal_eight_point", "ransac_score_hypotheses")),
-            ("orb", named_config("orb"),
-             ("fused_hamming_top2", "minimal_eight_point", "ransac_score_hypotheses"))):
+    for tag, cfg_name, kernels in STAGED_CONFIGS:
+        cfg = named_config(cfg_name)
         staged_two_view(img1, img2, seeds, cfg)                          # warm-up
         torch.cuda.synchronize()
         K_mod.reset_launch_counts()
@@ -1369,12 +1453,12 @@ def _staged(dev, K_mod) -> dict:
         launches[tag] = K_mod.launch_counts()
         _check(all(launches[tag][k] > 0 for k in kernels),
                f"staged {tag}: a kernel of the path never launched")
-        H = cfg.ransac.num_hypotheses
-        gen = torch.Generator(device=dev).manual_seed(1)
-        sp = [sample_minimal_points(gen, w["mmask"][i] != 0, H, 8, (w["p1"][i], w["p2"][i]))
-              for i in range(4)]
-        sp1, sp2 = torch.stack([x[0] for x in sp]), torch.stack([x[1] for x in sp])
+        sp1, sp2 = _staged_samples(w, cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ws = staged_two_view(img1, img2, seeds, cfg, samples=(sp1, sp2))
+        torch.cuda.synchronize()
+        ms_samples = (time.perf_counter() - t0) * 1e3
         rows, dF = [], 0.0
         for i in range(4):
             res = two_view_pipeline(img1[i], img2[i], None, cfg, samples=(sp1[i], sp2[i]))
@@ -1396,7 +1480,10 @@ def _staged(dev, K_mod) -> dict:
               f"with the same samples == two_view_pipeline per pair (kp1, matches, inliers) "
               f"{rows}, max |dF| {dF:.3g} (tol 1e-05)")
         _check(dF <= 1e-5, f"staged {tag}: F differs from two_view_pipeline")
-        out[tag] = dict(ms_per_batch=ms, pairs=4, per_pair=rows, max_dF=dF)
+        out[tag] = dict(ms_per_batch=ms, ms_per_batch_samples=ms_samples, pairs=4,
+                        per_pair=rows, max_dF=dF)
+        # the ``ranks`` phase's reference: this run with the injected samples
+        out.setdefault("ws1", {})[tag] = dict(samples=(sp1, sp2), wire=ws, ms=ms_samples)
     out["launches"] = {k: launches["surf"][k] + launches["orb"][k] for k in launches["surf"]}
     return out
 
@@ -1685,34 +1772,17 @@ def _config4_gates(tag: str, traj, cam_valid, regs, initial_cost, final_cost, gt
                 initial_cost=initial_cost, final_cost=final_cost)
 
 
-def _dslam_worker(rank: int, port: int, out_path: str) -> int:
-    """One of the two processes of config 4 at world size 2 on one card:
-    a gloo group (NCCL takes one rank a GPU), a 2 × 1 data × model mesh,
-    the run on the card; rank 0 writes the result as JSON."""
-    import torch
-    import torch.distributed as dist
+def _config4_rank(dev, K_mod, rank: int, world: int, inputs) -> dict:
+    """Rank job ``config4``: config 4's stand-in on a ``world`` × 1 data ×
+    model mesh."""
+    from points_matching_tpu_torch.parallel.mesh import make_mesh
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    from points_matching_tpu_torch.core.device import pin_fp32, resolve_device
-    from points_matching_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
-
-    dev = resolve_device("cuda")
-    pin_fp32()
-    initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
-                           world_size=2, rank=rank, timeout=60)
-    mesh = make_mesh((2, 1), ("data", "model"))
-    res, gt, sec = _config4_run(dev, mesh)
-    if rank == 0:
-        st = res.ba_stats
-        with open(out_path, "w") as f:
-            json.dump(dict(seconds=sec, trajectory=res.trajectory.tolist(),
-                           cam_valid=res.cam_valid.tolist(),
-                           regs=res.registered_per_segment.tolist(),
-                           initial_cost=float(st.initial_cost), final_cost=float(st.final_cost),
-                           iterations=int(st.iterations), stage_seconds=res.stage_seconds), f)
-    dist.destroy_process_group()
-    return 0
+    res, _, sec = _config4_run(dev, make_mesh((world, 1), ("data", "model")))
+    st = res.ba_stats
+    return dict(seconds=sec, trajectory=res.trajectory.tolist(),
+                cam_valid=res.cam_valid.tolist(), regs=res.registered_per_segment.tolist(),
+                initial_cost=float(st.initial_cost), final_cost=float(st.final_cost),
+                iterations=int(st.iterations), stage_seconds=res.stage_seconds)
 
 
 def _free_port() -> int:
@@ -1723,29 +1793,79 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _config4_ws2() -> tuple:
-    """Config 4 at world size 2: two ``_dslam_worker`` processes on this
-    card, joined with a deadline and killed on failure; (rank 0's result,
-    seconds with the processes' start)."""
+RANK_DEADLINE_S = 600
+
+
+def _rank_worker(jobs: str, rank: int, world: int, port: int, out_dir: str) -> int:
+    """One rank of a gloo group of ``world`` processes on this card (NCCL
+    takes one rank a GPU), running the comma-separated ``jobs`` of
+    ``RANK_JOBS`` in order; writes ``{job: result}`` to
+    ``out_dir/rank<rank>.pt``.  The kernel library is already built (the
+    parent builds it before it starts the ranks): this only loads it."""
+    import torch
+    import torch.distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from points_matching_tpu_torch.core.device import pin_fp32, resolve_device
+    from points_matching_tpu_torch.ops import kernels as K_mod
+    from points_matching_tpu_torch.ops.kernels import _build
+    from points_matching_tpu_torch.parallel.mesh import initialize_distributed
+
+    dev = resolve_device("cuda")
+    pin_fp32()
+    _check(os.path.exists(_build.library_path()), "rank worker: the kernel library is not built")
+    path = os.path.join(out_dir, "inputs.pt")
+    inputs = torch.load(path) if os.path.exists(path) else None
+    initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=world, rank=rank, timeout=60)
+    out = {job: RANK_JOBS[job](dev, K_mod, rank, world, inputs) for job in jobs.split(",")}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(jobs: str, world: int, inputs=None) -> tuple:
+    """``world`` rank workers (``python3 chip_smoke.py --rank-worker JOBS
+    RANK WORLD PORT DIR``) on this card, one gloo group; ``inputs`` (CPU
+    tensors) reach them through ``DIR/inputs.pt``.  Joined with a deadline
+    (``RANK_DEADLINE_S``); when one exits non-zero or the deadline passes,
+    the rest are killed and the run fails.  Returns (each rank's results in
+    rank order, seconds with the processes' start)."""
     import tempfile
 
+    import torch
+
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "ws2.json")
+        if inputs is not None:
+            torch.save(inputs, os.path.join(tmp, "inputs.pt"))
         port = _free_port()
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dslam-worker",
-                                   str(r), str(port), path]) for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                                   jobs, str(r), str(world), str(port), tmp])
+                 for r in range(world)]
         try:
-            rcs = [p.wait(timeout=600) for p in procs]
+            while any(p.poll() is None for p in procs):
+                if (any(p.poll() not in (None, 0) for p in procs)
+                        or time.perf_counter() - t0 > RANK_DEADLINE_S):
+                    break
+                time.sleep(0.1)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
-                    p.wait()
+                p.wait()
         wall = time.perf_counter() - t0
-        _check(rcs == [0, 0], f"distributed: world-size-2 workers exited {rcs}")
-        with open(path) as f:
-            return json.load(f), wall
+        rcs = [p.returncode for p in procs]
+        _check(rcs == [0] * world, f"ranks {jobs} at world size {world}: workers exited {rcs}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)], wall
+
+
+def _config4_ws2() -> tuple:
+    """Config 4 at world size 2: two rank workers on this card; (rank 0's
+    result, seconds with the processes' start)."""
+    results, wall = _spawn_ranks("config4", 2)
+    return results[0]["config4"], wall
 
 
 def _distributed(dev, K_mod) -> dict:
@@ -1753,7 +1873,7 @@ def _distributed(dev, K_mod) -> dict:
     4,541 frames) through ``run_distributed_slam``: at world size 1 over
     NCCL (a 1 × 1 data × model mesh; its launches are the phase's main
     path's), then at world size 2 as two processes on this card over gloo
-    (``_dslam_worker``), each held to the reference test's gates; world size
+    (rank job ``config4``), each held to the reference test's gates; world size
     2 must register the same frames as 1, give the same trajectory within
     ``RUN_GAP_TOL`` of the extent (RMS after alignment) and an ATE within
     ``ATE_GAP_TOL``.  Then GPU against CPU on tests/test_distributed_slam.py's
@@ -2418,11 +2538,449 @@ def _probes(dev, K_mod, q, t, F, p1, p2, pmask, launch_floor) -> dict:
     return out
 
 
+# The dense Schur BA at the JAX bench's ``ba`` shape (bench.py:452
+# ``bench_ba``: 32 cameras × 2,048 landmarks, chunks of 25 LM iterations at
+# rtol 0) from a perturbed start with two gauge cameras (the dense BA
+# tests' setup); the landmark-sharded form at world sizes 1 (NCCL) and, as
+# processes on this card over gloo, 2 and 4
+BA_DENSE = dict(num_cameras=32, num_landmarks=2048, chunk=25, worlds=(2, 4))
+# tests/test_torch_ba.py's bands for the 20-iteration result: the Cholesky
+# LM masks the gauge after its solve and amplifies rounding
+BA_DENSE_BANDS = dict(cholesky=0.1, pcg=1e-2)
+# the float32 card-vs-CPU gap (cost, X, t) may be at most this multiple of
+# the largest gap the card's own run shows when its landmarks move by 1e-7
+# or 1e-6 relative (seeds 9-11: six probes), as
+# tests/test_torch_cuda.py::test_dense_ba_gpu_matches_cpu holds it at 6 x 64
+BA_DENSE_PROBE = dict(multiple=4, eps=(1e-7, 1e-6), seeds=(9, 10, 11))
+
+
+def _ba_dense_problem(dev):
+    """(state, K) at ``BA_DENSE``'s shape on ``dev``: the dense BA tests'
+    perturbed start (``make_perturbed_ba_problem``, seed 1), the same bits
+    in every process."""
+    from points_matching_tpu_torch.data.synthetic import make_perturbed_ba_problem
+
+    return make_perturbed_ba_problem(1, BA_DENSE["num_cameras"], BA_DENSE["num_landmarks"],
+                                     device=dev)
+
+
+def _ba_dense_config(solver: str, iterations: int, rtol=None, pcg_iterations: int = 50):
+    from points_matching_tpu_torch.core.config import BAConfig
+
+    kw = {} if rtol is None else dict(rtol=rtol)
+    return BAConfig(max_iterations=iterations, solver=solver,
+                    pcg_iterations=pcg_iterations, **kw)
+
+
+def _ba_dense_probed(tag: str, state, K, cpu_state, cpu_K, cfg) -> dict:
+    """``bundle_adjust`` under ``cfg`` on the card against the CPU: the gap
+    (cost relative, largest |dX| and |dt|) beside the largest gap the
+    card's own run shows when its landmarks move by ``BA_DENSE_PROBE``'s
+    relative amounts (six probes), and the failure unless the gap is within
+    its multiple of that."""
+    import torch
+
+    from points_matching_tpu_torch.ba.lm import bundle_adjust
+
+    def apart(a, b):
+        (oa, sa), (ob, sb) = a, b
+        return (abs(float(sa.final_cost) / float(sb.final_cost) - 1),
+                float((oa.X.cpu() - ob.X.cpu()).abs().max()),
+                float((oa.poses.t.cpu() - ob.poses.t.cpu()).abs().max()))
+
+    card = bundle_adjust(state, K, cfg)
+    got = apart(card, bundle_adjust(cpu_state, cpu_K, cfg))
+    moved = [apart(bundle_adjust(dataclasses.replace(state, X=state.X * (1 + eps * torch.randn(
+        state.X.shape, generator=torch.Generator().manual_seed(seed)).to(state.X.device))),
+        K, cfg), card) for eps in BA_DENSE_PROBE["eps"] for seed in BA_DENSE_PROBE["seeds"]]
+    most = [max(m[k] for m in moved) for k in range(3)]
+    ratio = [x / m if m else (0.0 if x == 0 else math.inf) for x, m in zip(got, most)]
+    print(f"ba dense {tag} GPU vs CPU, {cfg.max_iterations} LM iteration(s) (float32): "
+          f"cost {got[0]:.3g}, max |dX| {got[1]:.3g}, |dt| {got[2]:.3g}; the card against "
+          f"itself, largest of {len(moved)} probes (landmarks moved by "
+          f"{'/'.join(f'{e:g}' for e in BA_DENSE_PROBE['eps'])} relative): cost {most[0]:.3g}, "
+          f"|dX| {most[1]:.3g}, |dt| {most[2]:.3g}; the gap is {ratio[0]:.3g} / {ratio[1]:.3g} "
+          f"/ {ratio[2]:.3g} of it (gate {BA_DENSE_PROBE['multiple']})")
+    _check(max(ratio) <= BA_DENSE_PROBE["multiple"],
+           f"ba dense {tag}: {cfg.max_iterations} iterations on the card lie further from the "
+           f"CPU than the card's own amplification of rounding allows")
+    return dict(cost_rel=got[0], X=got[1], t=got[2], probe_cost_rel=most[0], probe_X=most[1],
+                probe_t=most[2], ratio_to_probe=ratio, probe_moves=moved)
+
+
+def _ba_result(out, st) -> dict:
+    """A dense BA's result on the host: costs, iterations, X and t."""
+    return dict(initial_cost=float(st.initial_cost), final_cost=float(st.final_cost),
+                iterations=int(st.iterations), X=out.X.cpu(), t=out.poses.t.cpu())
+
+
+def _dense_ba_rank(dev, K_mod, rank: int, world: int, inputs) -> dict:
+    """Rank job ``dense_ba``: ``distributed_bundle_adjust`` on a 1 × ``world``
+    data × model mesh (each rank ``L / world`` landmarks), both solvers, 1
+    and 5 LM iterations (default rtol), as tests/test_torch_parallel.py
+    runs it; the 5-iteration run timed from a barrier (processes sharing
+    one card)."""
+    import torch
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.parallel.mesh import make_mesh
+    from points_matching_tpu_torch.parallel.sharded_ba import distributed_bundle_adjust
+
+    state, K = _ba_dense_problem(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {}
+    for solver in ("cholesky", "pcg"):
+        for it in (1, 5):
+            dist.barrier()
+            t0 = time.perf_counter()
+            o, st = distributed_bundle_adjust(state, K, mesh, _ba_dense_config(solver, it))
+            torch.cuda.synchronize()
+            out[f"{solver}_it{it}"] = dict(_ba_result(o, st),
+                                           seconds=time.perf_counter() - t0)
+    return out
+
+
+def _ba_dense(dev, K_mod) -> dict:
+    """The dense Schur BA (``ba/lm.bundle_adjust``) at the JAX bench's
+    ``ba`` shape (``BA_DENSE``), Cholesky then PCG (50 steps), each a chunk
+    of 25 LM iterations at rtol 0 run three times: the cost falls and stays
+    finite, the three runs equal in every bit (cost, X, R, t); ms per LM
+    iteration (host clock, synchronized), peak device memory, the aten ops
+    and host reads of one iteration (a 2-iteration run less a 1-iteration
+    one), the bound (``work.dense_ba_iteration_work``, fp32 FMA peak).  Held
+    to the CPU with tests/test_torch_ba.py's bounds: the first two LM steps
+    within 1e-3 (cost, and the X and t updates against the largest), the
+    20-iteration cost within 10 % (Cholesky) / 1 % (PCG); after 1, 2 and
+    20 iterations, here and at the card test's 6 × 64, the cost, X and t
+    gaps within ``BA_DENSE_PROBE``'s multiple of the largest the card's own
+    run shows when its landmarks move by 1e-7 or 1e-6 relative
+    (``_ba_dense_probed``).  Then ``distributed_bundle_adjust``: at world
+    size 1 over NCCL (a 1 × 1 mesh) equal to ``bundle_adjust`` bit for bit;
+    at world sizes 2 and 4 as rank workers on this card over gloo, held to
+    the one-process card run with tests/test_torch_parallel.py's bounds (1
+    iteration: cost rtol 1e-4, X 1e-3; 5: both costs fall and agree to 10
+    %), every rank the same answer.  The path has no hand kernel (cuBLAS
+    contractions): its launches are printed, all 0."""
+    import torch
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.ba.lm import bundle_adjust
+    from points_matching_tpu_torch.data.synthetic import make_perturbed_ba_problem
+    from points_matching_tpu_torch.ops.kernels import work
+    from points_matching_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from points_matching_tpu_torch.parallel.sharded_ba import distributed_bundle_adjust
+    from points_matching_tpu_torch.utils.profiling import chip_peaks
+
+    C, L, chunk = (BA_DENSE[k] for k in ("num_cameras", "num_landmarks", "chunk"))
+    state, K = _ba_dense_problem(dev)
+    cpu_state, cpu_K = _ba_dense_problem("cpu")
+    peaks = chip_peaks(dev)
+    out, path_launches = {}, {}
+    for solver in ("cholesky", "pcg"):
+        cfg = _ba_dense_config(solver, chunk, rtol=0.0)
+        bundle_adjust(state, K, _ba_dense_config(solver, 1, rtol=0.0))          # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K_mod.reset_launch_counts()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            o, st = bundle_adjust(state, K, cfg)
+            torch.cuda.synchronize()
+            runs.append((o, st, (time.perf_counter() - t0) * 1e3))
+        launches = K_mod.launch_counts()
+        for k, v in launches.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        o, st, _ = runs[0]
+        c0, c1, its = float(st.initial_cost), float(st.final_cost), int(st.iterations)
+        ms_it = sorted(r[2] / its for r in runs)
+        same = all(torch.equal(st.final_cost, r[1].final_cost) and torch.equal(o.X, r[0].X)
+                   and torch.equal(o.poses.R, r[0].poses.R)
+                   and torch.equal(o.poses.t, r[0].poses.t) for r in runs[1:])
+        _check(o.X.is_cuda and math.isfinite(c1) and c1 < c0 and its == chunk,
+               f"ba dense {solver}: the cost did not fall or is not finite")
+        _check(same, f"ba dense {solver}: two runs differ")
+        _check(not any(launches.values()), f"ba dense {solver}: launched {launches}")
+        ops = [_count_ops(lambda n=n: bundle_adjust(state, K, _ba_dense_config(
+            solver, n, rtol=0.0))) for n in (1, 2)]
+        syncs = [_count_syncs(lambda n=n: bundle_adjust(state, K, _ba_dense_config(
+            solver, n, rtol=0.0)))[1] for n in (1, 2)]
+        w = work.dense_ba_iteration_work(C, L, solver, cfg.pcg_iterations)
+        b = work.bound(w, peaks)
+        print(f"ba dense {solver}: {C} cams x {L} lm ({int(state.mask.sum())} valid cells), "
+              f"{its} LM iterations at rtol 0: cost {c0:.6g} -> {c1:.6g}; "
+              f"{ms_it[1]:.3f} ms an iteration (median of 3; {ms_it[0]:.3f}-{ms_it[2]:.3f}; "
+              f"host clock, synchronized); the three runs equal bit for bit {same}; peak "
+              f"device memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
+              f"{base / 2**20:.1f} held before); an iteration {ops[1] - ops[0]} aten ops, "
+              f"{syncs[1] - syncs[0]} host reads; bound {b['bound_ms']:.5f} ms "
+              f"({w.ops / 1e6:.1f} MFLOP at {peaks['flops'] / 1e12:g} TFLOP/s fp32 FMA, "
+              f"{b['bound_by']}; {b['bound_ms'] / ms_it[1]:.3%} of it reached); "
+              f"launches {launches}")
+        rec = dict(initial_cost=c0, final_cost=c1, iterations=its, ms_per_iteration=ms_it[1],
+                   ms_per_iteration_runs=ms_it, runs_equal=same, peak_bytes=peak,
+                   base_bytes=base, aten_ops_per_iteration=ops[1] - ops[0],
+                   host_reads_per_iteration=syncs[1] - syncs[0], flops_per_iteration=w.ops,
+                   **b, bound_share=b["bound_ms"] / ms_it[1])
+
+        # the card against the CPU: the first two steps, then 20 iterations
+        for n in (1, 2):
+            g, gs = bundle_adjust(state, K, _ba_dense_config(solver, n, rtol=0.0))
+            c, cs = bundle_adjust(cpu_state, cpu_K, _ba_dense_config(solver, n, rtol=0.0))
+            dcost = abs(float(gs.final_cost) / float(cs.final_cost) - 1)
+            dsteps = []
+            for a_, b_, start in ((g.X, c.X, cpu_state.X), (g.poses.t, c.poses.t,
+                                                          cpu_state.poses.t)):
+                d_cpu = b_ - start
+                dsteps.append(float((a_.cpu() - start - d_cpu).abs().max())
+                              / float(d_cpu.abs().max()))
+            print(f"ba dense {solver} GPU vs CPU, {n} LM iteration(s): cost "
+                  f"{float(gs.final_cost):.6g} vs {float(cs.final_cost):.6g} (relative "
+                  f"{dcost:.3g}, tol 1e-3); X and t "
+                  f"updates apart by {dsteps[0]:.3g} / {dsteps[1]:.3g} of the largest (tol 1e-3)")
+            _check(dcost <= 1e-3 and max(dsteps) <= 1e-3 and int(gs.iterations) == n,
+                   f"ba dense {solver}: GPU and CPU steps differ at iteration {n}")
+            rec[f"gpu_vs_cpu_it{n}"] = dict(cost_rel=dcost, X_step_rel=dsteps[0],
+                                            t_step_rel=dsteps[1])
+        cfg20 = _ba_dense_config(solver, 20)
+        g, gs = bundle_adjust(state, K, cfg20)
+        c, cs = bundle_adjust(cpu_state, cpu_K, cfg20)
+        dcost = abs(float(gs.final_cost) / float(cs.final_cost) - 1)
+        print(f"ba dense {solver} GPU vs CPU, 20 LM iterations: cost {float(gs.final_cost):.6g} "
+              f"vs {float(cs.final_cost):.6g} (relative {dcost:.3g}, band "
+              f"{BA_DENSE_BANDS[solver]:g})")
+        _check(math.isfinite(float(gs.final_cost)) and dcost <= BA_DENSE_BANDS[solver],
+               f"ba dense {solver}: 20 iterations on the card and the CPU differ")
+        # the gaps against the card's own amplification of rounding, at the
+        # bench's shape and at the card test's 6 x 64 (20 PCG steps)
+        small = [make_perturbed_ba_problem(0, 6, 64, device=d) for d in (dev, "cpu")]
+        rec["gpu_vs_cpu_probed"] = {
+            shape: {n: _ba_dense_probed(f"{solver} {shape}", state_, K_, cpu_, cpu_K_,
+                                        _ba_dense_config(solver, n, rtol=0.0 if n < 20
+                                                         else None, pcg_iterations=pcg))
+                    for n in (1, 2, 20)}
+            for shape, (state_, K_), (cpu_, cpu_K_), pcg in (
+                (f"{C}x{L}", (state, K), (cpu_state, cpu_K), 50),
+                ("6x64", small[0], small[1], 20))}
+        rec["gpu_vs_cpu_it20"] = dict(cost_rel=dcost)
+        out[solver] = rec
+
+    # the landmark-sharded form: world size 1 over NCCL, bit for bit
+    initialize_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+                           rank=0, timeout=60, force=True)
+    _check(dist.get_backend() == "nccl", "ba dense: world size 1 is not on NCCL")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    for solver in ("cholesky", "pcg"):
+        cfg = _ba_dense_config(solver, chunk, rtol=0.0)
+        a, sa = bundle_adjust(state, K, cfg)
+        # warm-up: NCCL makes its communicator at the group's first collective
+        distributed_bundle_adjust(state, K, mesh, _ba_dense_config(solver, 1, rtol=0.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b_, sb = distributed_bundle_adjust(state, K, mesh, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / int(sb.iterations)
+        same = (torch.equal(sa.final_cost, sb.final_cost) and torch.equal(a.X, b_.X)
+                and torch.equal(a.poses.t, b_.poses.t) and torch.equal(a.poses.R, b_.poses.R))
+        print(f"ba dense {solver} distributed_bundle_adjust at world size 1 (NCCL, 1 x 1 mesh): "
+              f"{ms:.3f} ms an iteration; equal to bundle_adjust bit for bit {same}")
+        _check(same, f"ba dense {solver}: world size 1 differs from bundle_adjust")
+        out[solver]["ws1_nccl"] = dict(equal=same, ms_per_iteration=ms)
+    dist.destroy_process_group()
+
+    # world sizes 2 and 4: processes sharing this card
+    single = {f"{solver}_it{it}": _ba_result(*bundle_adjust(state, K, _ba_dense_config(
+        solver, it))) for solver in ("cholesky", "pcg") for it in (1, 5)}
+    for world in BA_DENSE["worlds"]:
+        results, wall = _spawn_ranks("dense_ba", world)
+        for solver in ("cholesky", "pcg"):
+            rows = {}
+            for it in (1, 5):
+                key = f"{solver}_it{it}"
+                got, want = results[0]["dense_ba"][key], single[key]
+                _check(all(torch.equal(r["dense_ba"][key]["X"], got["X"])
+                           and r["dense_ba"][key]["final_cost"] == got["final_cost"]
+                           for r in results), f"ba dense {key} ws{world}: ranks disagree")
+                dcost = abs(got["final_cost"] / want["final_cost"] - 1)
+                dX = float((got["X"] - want["X"]).abs().max())
+                ok = (got["final_cost"] < got["initial_cost"]
+                      and want["final_cost"] < want["initial_cost"]
+                      and dcost <= (1e-4 if it == 1 else 0.1) and (it > 1 or dX <= 1e-3))
+                secs = max(r["dense_ba"][key]["seconds"] for r in results)
+                rows[it] = dict(cost_rel=dcost, X=dX, final_cost=got["final_cost"],
+                                seconds=secs, iterations=got["iterations"])
+                _check(ok, f"ba dense {key}: world size {world} against one process "
+                           f"(cost {dcost:.3g}, |dX| {dX:.3g})")
+            ms5 = rows[5]["seconds"] / rows[5]["iterations"] * 1e3
+            print(f"ba dense {solver} distributed_bundle_adjust at world size {world} "
+                  f"({world} processes sharing this card over gloo): 1 iteration cost "
+                  f"{rows[1]['cost_rel']:.3g} from one process (tol 1e-4), |dX| "
+                  f"{rows[1]['X']:.3g} (tol 1e-3); 5 iterations cost {rows[5]['cost_rel']:.3g} "
+                  f"(tol 0.1) in {rows[5]['seconds']:.3f} s ({ms5:.3f} ms an iteration, "
+                  f"processes sharing one card); every rank the same answer; {wall:.1f} s "
+                  f"with the processes' start")
+            out[solver][f"ws{world}"] = dict(rows, seconds_with_start=wall)
+    out["launches"] = path_launches
+    return out
+
+
+def _ring_rank(dev, K_mod, rank: int, world: int, inputs) -> dict:
+    """Rank job ``ring``: config 1's sweep through ``all_pairs_scores`` over
+    a (``world``,) data mesh; a warm-up sweep of 4 frames a rank, then the
+    timed sweep from a barrier, its K1 launches on this rank."""
+    import torch
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.parallel.all_pairs import all_pairs_scores
+    from points_matching_tpu_torch.parallel.mesh import make_mesh
+
+    desc, mask = _all_pairs_inputs(dev)
+    mesh = make_mesh((world,), ("data",))
+    all_pairs_scores(desc[:4 * world], mask[:4 * world], ALL_PAIRS["ratio"], mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    K_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = all_pairs_scores(desc, mask, ALL_PAIRS["ratio"], mesh=mesh)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    q = desc.shape[0] // world
+    return dict(scores=scores.cpu(), seconds=sec, launches=K_mod.launch_counts(),
+                shift_bytes=q * desc.shape[1] * (desc.shape[2] * desc.element_size() + 1),
+                shifts=world - 1)
+
+
+def _staged_rank(dev, K_mod, rank: int, world: int, inputs) -> dict:
+    """Rank job ``staged``: ``staged_two_view`` over a (``world``,) stage
+    mesh, a stage a rank, SURF then ORB on the pairs and RANSAC samples in
+    ``inputs``; a warm-up run, then the timed run from a barrier, with this
+    rank's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from points_matching_tpu_torch.core.config import named_config
+    from points_matching_tpu_torch.parallel.mesh import make_mesh
+    from points_matching_tpu_torch.pipelines.staged_two_view import staged_two_view
+
+    mesh = make_mesh((world,), ("stage",))
+    img1, img2 = (inputs[k].to(dev) for k in ("img1", "img2"))
+    out = {}
+    for tag, cfg_name, _ in STAGED_CONFIGS:
+        cfg = named_config(cfg_name)
+        samples = tuple(x.to(dev) for x in inputs["samples"][tag])
+        staged_two_view(img1, img2, inputs["seeds"], cfg, mesh=mesh, samples=samples)
+        torch.cuda.synchronize()
+        dist.barrier()
+        K_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        w = staged_two_view(img1, img2, inputs["seeds"], cfg, mesh=mesh, samples=samples)
+        torch.cuda.synchronize()
+        out[tag] = dict(wire={k: v.cpu() for k, v in w.items()}, launches=K_mod.launch_counts(),
+                        ms=(time.perf_counter() - t0) * 1e3)
+    return out
+
+
+# which kernels each stage may launch (detect → describe → match → geometry)
+STAGE_KERNELS = dict(surf=((), (), ("fused_l2_top2",),
+                           ("minimal_eight_point", "ransac_score_hypotheses")),
+                     orb=((), (), ("fused_hamming_top2",),
+                          ("minimal_eight_point", "ransac_score_hypotheses")))
+
+
+def _ranks(dev, K_mod, staged_ws1) -> dict:
+    """Paths over several ranks, as processes on this card over gloo (rank
+    jobs ``ring`` and ``staged``; their seconds are of processes that share
+    one card).  The all-pairs ring (config 1, ``ALL_PAIRS``) over a data
+    mesh of 2 and of 4 ranks: the [N, N] scores equal to the ``mesh=None``
+    sweep on the card bit for bit (K1's rows do not depend on the rows
+    beside them), the planted pair found, seconds a sweep, K1's launches a
+    rank and the bytes each ``ring_shift`` moves.  The staged two-view at
+    one rank a stage (4 ranks) on the ``staged`` phase's pairs and RANSAC
+    samples, SURF and ORB: every field of the wire equal to the world-size-1
+    run bit for bit; each stage's kernels launched on its own rank only
+    (``STAGE_KERNELS``); ms a microbatch of 4 beside world size 1's, and the
+    bubble share (S − 1)/(M + S − 1)."""
+    import torch
+
+    from points_matching_tpu_torch.parallel.all_pairs import all_pairs_scores
+
+    desc, mask = _all_pairs_inputs(dev)
+    ref = all_pairs_scores(desc, mask, ALL_PAIRS["ratio"]).cpu()
+    img1, img2, seeds = _staged_inputs(dev)
+    inputs = dict(img1=img1.cpu(), img2=img2.cpu(), seeds=seeds,
+                  samples={tag: tuple(x.cpu() for x in staged_ws1[tag]["samples"])
+                           for tag, _, _ in STAGED_CONFIGS})
+    out = dict(ring={}, staged={}, launches={})
+    for world in (2, 4):
+        results, wall = _spawn_ranks("ring" if world == 2 else "ring,staged", world,
+                                     inputs if world == 4 else None)
+        ring = [r["ring"] for r in results]
+        for r, res in enumerate(ring):
+            diff = (res["scores"] != ref).nonzero().tolist()
+            _check(not diff, f"ring ws{world} rank {r}: cells {diff[:8]} differ from the "
+                             "mesh=None sweep")
+        best7, best_twin, _, _ = _planted_pair(ring[0]["scores"])
+        _check(best7 == ALL_PAIRS["twin"] and best_twin == 7,
+               f"ring ws{world}: the planted pair was not found")
+        k1 = [res["launches"]["fused_l2_top2"] for res in ring]
+        _check(all(n > 0 for n in k1), f"ring ws{world}: K1 did not launch on every rank")
+        sec = max(res["seconds"] for res in ring)
+        n = ALL_PAIRS["n"]
+        print(f"ranks ring ws{world} ({world} processes sharing this card over gloo): "
+              f"{n} x {ALL_PAIRS['k']} x {ALL_PAIRS['d']} scores equal to the mesh=None sweep bit "
+              f"for bit on every rank; planted pair 7 <-> {best7}; {sec:.4f} s a sweep "
+              f"({n * n / sec:.4g} pairs/s); K1 launches a rank {k1}; "
+              f"{ring[0]['shifts']} ring_shifts a rank of {ring[0]['shift_bytes']} bytes each "
+              f"(descriptors and mask, through host copies); {wall:.1f} s with the "
+              f"processes' start")
+        out["ring"][f"ws{world}"] = dict(seconds=sec, pairs_per_s=n * n / sec,
+                                         launches_per_rank=k1, shifts=ring[0]["shifts"],
+                                         shift_bytes=ring[0]["shift_bytes"],
+                                         seconds_with_start=wall)
+        for k in K_mod.launch_counts():
+            out["launches"][k] = out["launches"].get(k, 0) + sum(
+                res["launches"][k] for res in ring)
+        if world != 4:
+            continue
+        for tag, _, _ in STAGED_CONFIGS:
+            want = staged_ws1[tag]["wire"]
+            staged = [r["staged"][tag] for r in results]
+            for r, res in enumerate(staged):
+                bad = [k for k in want if not torch.equal(res["wire"][k], want[k].cpu())]
+                _check(set(res["wire"]) == set(want) and not bad,
+                       f"staged {tag} ws4 rank {r}: fields {bad} differ from world size 1")
+                allowed = STAGE_KERNELS[tag][r]
+                stray = {k: v for k, v in res["launches"].items() if v and k not in allowed}
+                _check(not stray and all(res["launches"][k] > 0 for k in allowed),
+                       f"staged {tag} ws4 rank {r}: launches {res['launches']} (stage "
+                       f"kernels {allowed})")
+            ms = max(res["ms"] for res in staged)
+            M, S = want["F"].shape[0], world
+            bubble = (S - 1) / (M + S - 1)
+            per_rank = [{k: v for k, v in res["launches"].items() if v} for res in staged]
+            print(f"ranks staged {tag} ws4 (a stage a rank, 4 processes sharing this card over "
+                  f"gloo): every wire field equal to world size 1 bit for bit on every rank; "
+                  f"launches by rank {per_rank}; {ms:.3f} ms a microbatch of {M} (world size "
+                  f"1 {staged_ws1[tag]['ms']:.3f} ms); bubble share (S-1)/(M+S-1) = "
+                  f"{bubble:.4f}")
+            out["staged"][tag] = dict(ms_per_batch=ms, ms_ws1=staged_ws1[tag]["ms"],
+                                      bubble_share=bubble, launches_by_rank=per_rank)
+            for k in K_mod.launch_counts():
+                out["launches"][k] += sum(res["launches"][k] for res in staged)
+    return out
+
+
+RANK_JOBS = dict(config4=_config4_rank, dense_ba=_dense_ba_rank, ring=_ring_rank,
+                 staged=_staged_rank)
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:2] == ["--dslam-worker"]:
-        return _dslam_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return _rank_worker(sys.argv[2], *map(int, sys.argv[3:6]), sys.argv[6])
     parent_tree = None
     if sys.argv[1:2] == ["--parent"]:
         parent_tree = os.path.abspath(sys.argv[2])
@@ -2771,6 +3329,7 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     report["staged"] = _staged(dev, K)
+    staged_ws1 = report["staged"].pop("ws1")
     phase_s["staged"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
@@ -2788,7 +3347,9 @@ def main() -> int:
                       ("segment_sum", lambda: _segment_sum(dev, parent_tree)),
                       ("ba", lambda: _ba_sparse(dev, K)),
                       ("pose_graph", lambda: _pose_graph(dev, K)),
+                      ("ba_dense", lambda: _ba_dense(dev, K)),
                       ("all_pairs", lambda: _all_pairs(dev, K)),
+                      ("ranks", lambda: _ranks(dev, K, staged_ws1)),
                       ("distributed", lambda: _distributed(dev, K)),
                       ("slam", lambda: _slam(dev, K, measure, (im1, im2), (q, t, t_mask),
                                              report["K1_f32"]))):
@@ -2825,7 +3386,10 @@ def main() -> int:
     slam_launches = report["slam"].pop("launches")
     probe_launches = report["probes"].pop("launches")
     ba_launches = report["ba"].pop("launches")
+    ba_dense_launches = report["ba_dense"].pop("launches")
     pg_launches = report["pose_graph"].pop("launches")
+    ranks_launches = report["ranks"].pop("launches")
+    report["K1_f32"]["ring"] = report["ranks"]["ring"]
 
     def launches(name):
         by_path = dict(surf=surf_launches[name], orb=orb_launches[name],
@@ -2834,7 +3398,8 @@ def main() -> int:
                        staged=staged_launches[name], pairs=pairs_launches[name],
                        distributed=dist_launches[name],
                        slam=slam_launches[name], probe=probe_launches[name],
-                       ba=ba_launches[name], pose_graph=pg_launches[name])
+                       ba=ba_launches[name], ba_dense=ba_dense_launches[name],
+                       pose_graph=pg_launches[name], ranks=ranks_launches[name])
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     # the segmented sum on every path that runs a BA or a pose graph
@@ -2890,9 +3455,10 @@ def main() -> int:
     ]
     _check(all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels),
            "non-finite timing or a kernel that never launched")
-    print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba", "pose_graph",
-                                                        "all_pairs", "staged", "pairs",
-                                                        "distributed", "slam")}))
+    print("sfm: " + json.dumps({k: report[k] for k in ("sfm", "sfm32", "ba", "ba_dense",
+                                                        "pose_graph", "all_pairs", "ranks",
+                                                        "staged", "pairs", "distributed",
+                                                        "slam")}))
     print("probes: " + json.dumps(report["probes"].pop("rows")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

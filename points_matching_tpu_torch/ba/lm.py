@@ -26,7 +26,7 @@ from points_matching_tpu_torch.ba.schur import (
 )
 from points_matching_tpu_torch.core.config import BAConfig
 from points_matching_tpu_torch.core.device import pin_fp32
-from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
+from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose, put_rows_last
 from points_matching_tpu_torch.geometry.se3 import se3_exp
 
 Tensor = torch.Tensor
@@ -175,16 +175,15 @@ def bundle_adjust(state: BAState, K: CameraIntrinsics, config: BAConfig = BAConf
 
 def grid_from_obs(cam_idx: Tensor, lm_idx: Tensor, uv: Tensor, obs_mask: Tensor,
                   num_cameras: int, num_landmarks: int) -> Tuple[Tensor, Tensor]:
-    """Flattened observation list → dense [C, L] grid (uv, mask).  Invalid
-    entries land in a spare row and column that are sliced off; for a
-    duplicate (c, l) pair one of the writes wins (which one is not
-    specified, as in the reference's scatter)."""
+    """Flattened observation list → dense [C, L] grid (uv, mask).  Each
+    valid row writes the flat cell c·L + l through ``put_rows_last``, so
+    for a duplicate (c, l) pair the last valid row wins on every device, as
+    in the reference (whose scatter gives that on the CPU).  Invalid rows,
+    and valid ones whose indices fall outside the grid, write a spare cell
+    that is sliced off (the reference's scatter drops them)."""
     C, L = num_cameras, num_landmarks
-    dev = uv.device
-    c = torch.where(obs_mask, cam_idx.long(), C)
-    l_ = torch.where(obs_mask, lm_idx.long(), L)
-    uv_grid = torch.zeros(C + 1, L + 1, 2, dtype=uv.dtype, device=dev)
-    m_grid = torch.zeros(C + 1, L + 1, dtype=torch.bool, device=dev)
-    uv_grid[c, l_] = uv
-    m_grid[c, l_] = obs_mask.bool()
-    return uv_grid[:C, :L], m_grid[:C, :L]
+    ok = obs_mask.bool() & (cam_idx >= 0) & (cam_idx < C) & (lm_idx >= 0) & (lm_idx < L)
+    cell = torch.where(ok, cam_idx.long() * L + lm_idx.long(), C * L)
+    uv_grid = put_rows_last(uv.new_zeros(C * L + 1, 2), cell, uv)
+    m_grid = put_rows_last(torch.zeros(C * L + 1, dtype=torch.bool, device=uv.device), cell, ok)
+    return uv_grid[:C * L].view(C, L, 2), m_grid[:C * L].view(C, L)

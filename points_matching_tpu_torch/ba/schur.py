@@ -104,11 +104,14 @@ def _back_substitute(blocks: NormalEqBlocks, Vinv: Tensor, dc: Tensor) -> Tensor
 
 def solve_schur(blocks: NormalEqBlocks, lam, group=None) -> Tuple[Tensor, Tensor]:
     """Dense Cholesky on the reduced camera system + landmark
-    back-substitution → (dc [C, 6], dl [L, 3])."""
+    back-substitution → (dc [C, 6], dl [L, 3]).  A failed factor
+    (``info`` ≠ 0) gives a NaN step, whose cost the LM loop rejects, as the
+    reference's NaN factor does; nothing is read on the host."""
     C = blocks.U.shape[0]
     S, g, Vinv = schur_reduce(blocks, lam, group)
-    Lc = torch.linalg.cholesky_ex(S.reshape(C * 6, C * 6))[0]
+    Lc, info = torch.linalg.cholesky_ex(S.reshape(C * 6, C * 6))
     dc = torch.cholesky_solve(g.reshape(C * 6, 1), Lc).reshape(C, 6)
+    dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
     return dc, _back_substitute(blocks, Vinv, dc)
 
 

@@ -45,6 +45,35 @@ def flat_rows(index: Tensor, n: int) -> Tensor:
     return index + torch.arange(math.prod(lead), device=index.device).reshape(*lead, 1) * n
 
 
+def put_rows(dst: Tensor, pos: Tensor, src) -> Tensor:
+    """``dst`` [*B, n, ...] with rows ``pos`` [*B, m] set to ``src``
+    (broadcast to [*B, m, ...]); rows with pos == n land in a spare row
+    that is sliced off (dropped), the reference's ``mode="drop"``."""
+    nb = pos.dim() - 1
+    n, rest = dst.shape[nb], dst.shape[nb + 1:]
+    out = torch.cat([dst, dst.new_zeros((*dst.shape[:nb], 1, *rest))], nb)
+    if not isinstance(src, torch.Tensor):
+        # a Python value written by index would be copied to the device
+        # first, which waits for it
+        src = torch.full((), src, dtype=dst.dtype, device=dst.device)
+    flat = out.view(-1, *rest)
+    flat[flat_rows(pos.long(), n + 1).reshape(-1)] = (
+        src.to(dst.dtype).expand(*pos.shape, *rest).reshape(-1, *rest))
+    return out.narrow(nb, 0, n)
+
+
+def put_rows_last(dst: Tensor, pos: Tensor, src: Tensor) -> Tensor:
+    """``put_rows`` where several rows may target one slot: the last such
+    row wins, deterministically on every device (the rule of the
+    reference's scatter on the CPU); the others are dropped."""
+    n = dst.shape[pos.dim() - 1]
+    pos = pos.long()
+    rows = torch.arange(pos.shape[-1], device=pos.device).expand(pos.shape)
+    winner = torch.full((*pos.shape[:-1], n + 1), -1, dtype=torch.long, device=pos.device)
+    winner = winner.scatter_reduce(-1, pos, rows, "amax")
+    return put_rows(dst, torch.where(winner.gather(-1, pos) == rows, pos, n), src)
+
+
 @dataclasses.dataclass
 class Keypoints:
     """Fixed-capacity set of 2D keypoints.

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from points_matching_tpu_torch.ba.lm import BAState, make_ba_state
 from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose
 from points_matching_tpu_torch.geometry.fundamental import _sign_normalize
 from points_matching_tpu_torch.geometry.homogeneous import skew
@@ -113,6 +114,36 @@ def make_ba_problem(generator: torch.Generator, num_cameras: int = 6,
     mask = ((uv[..., 0] >= 0) & (uv[..., 0] < w) & (uv[..., 1] >= 0) & (uv[..., 1] < h)
             & (Xc[..., 2] > 0.1))
     return dict(K=K, poses=poses, X=X, uv=uv, mask=mask)
+
+
+def make_perturbed_ba_problem(seed: int, num_cameras: int = 6, num_landmarks: int = 64,
+                              dtype: torch.dtype = torch.float32, device="cpu"
+                              ) -> Tuple[BAState, CameraIntrinsics]:
+    """The dense BA tests' setup: ``make_ba_problem`` (generator seed
+    ``seed``) from a start off its truth (seed ``seed + 1``), every camera
+    but the first two turned by 0.01·N(0, I) rad and moved by 0.05·N(0, I),
+    every landmark moved by 0.05·N(0, I); the two unmoved cameras are the
+    state's gauge.  Drawn on the CPU in float32, so every device and
+    process gets the same start.  Returns (state, K) in ``dtype`` on
+    ``device``."""
+    gauge = 2
+    g = torch.Generator().manual_seed(seed)
+    prob = make_ba_problem(g, num_cameras=num_cameras, num_landmarks=num_landmarks)
+    g.manual_seed(seed + 1)
+    free = (torch.arange(num_cameras) >= gauge)
+    dR = so3_exp(0.01 * torch.randn((num_cameras, 3), generator=g))
+    dt = 0.05 * torch.randn((num_cameras, 3), generator=g)
+    R, t = prob["poses"].R, prob["poses"].t
+    R = torch.where(free[:, None, None], dR @ R, R)
+    t = torch.where(free[:, None], t + dt, t)
+    X = prob["X"] + 0.05 * torch.randn(prob["X"].shape, generator=g)
+
+    def put(x):
+        return x.to(device=device, dtype=dtype)
+
+    state = make_ba_state(Pose(R=put(R), t=put(t)), put(X), put(prob["uv"]),
+                          prob["mask"].to(device), num_fixed_cameras=gauge)
+    return state, CameraIntrinsics.from_matrix(put(prob["K"]))
 
 
 def make_sparse_ba_problem(seed: int = 0, num_cameras: int = 64,

@@ -230,3 +230,50 @@ def segment_sum_work(values, plan) -> Work:
     nbytes = es * W * (valid + n) + 4 * valid + 2 * 4 * (n + 1)
     unit = "f64_instr" if values.dtype == torch.float64 else "instr"
     return Work(nbytes, (valid - nonempty) * W, unit)
+
+
+def dense_ba_iteration_work(num_cameras: int, num_landmarks: int, solver: str = "cholesky",
+                            pcg_iterations: int = 50) -> Work:
+    """One LM iteration of the dense BA (``ba/lm.bundle_adjust``) on the
+    [C, L] grid: a step and the proposed state's cost.  No hand kernel runs
+    it (cuBLAS contractions and eager elementwise ops), so this is the
+    path's own bound, not a kernel's.
+
+    Operations: the fp32 multiply-adds of its contractions, two flops each,
+    from their shapes (every cell of the grid, masked or not, as the grid
+    computes them); the elementwise work around them (the projection, the
+    damping, the 3×3 inverses, PCG's vector updates) and the retraction's
+    3×3 products are left out, so the bound is a floor.  In multiply-adds:
+
+    * ``ba/residuals.residuals_and_jacobians``: R·X (9 a cell), Jl = Jp·R
+      (18 a cell);
+    * ``ba/schur.build_normal_equations``: U (2·6·6 = 72 a cell), V (18),
+      W (36), bc (12), bl (6);
+    * Cholesky (``schur_reduce``, ``solve_schur``): Y = W·V⁻¹ (54 a cell),
+      S = Y·Wᵀ (108·C a cell), g (18 a cell), the factor of the 6C × 6C
+      system ((6C)³/3) and its two triangular solves (2·(6C)²), the
+      back-substitution V⁻¹·(bl − Wᵀ·dc) (18 a cell, 9 a landmark);
+    * PCG (``solve_schur_pcg``, ``pcg``): g = bc − W·(V⁻¹·bl) (18 a cell, 9
+      a landmark), Y (54 a cell), S's diagonal blocks (108 a cell), then
+      ``pcg_iterations`` + 1 products with S (the first at x = 0: Wᵀ·x and
+      W·(V⁻¹·Wᵀx), 36 a cell; V⁻¹·, 9 a landmark; U·x, 36 a camera) and as
+      many preconditioner products (36 a camera), the back-substitution;
+    * the proposed state's cost (``ba_cost``): R·X (9 a cell).
+
+    Bytes: the state read once (poses, X, uv, mask) and the poses and X
+    written once."""
+    C, L = num_cameras, num_landmarks
+    cells = C * L
+    fma = ((9 + 18) + (72 + 18 + 36 + 12 + 6) + 9) * cells
+    if solver == "cholesky":
+        n = 6 * C
+        fma += (54 + 108 * C + 18 + 18) * cells + 9 * L + n ** 3 // 3 + 2 * n * n
+    elif solver == "pcg":
+        products = pcg_iterations + 1
+        fma += ((18 + 54 + 108 + 18) * cells + 2 * 9 * L
+                + products * (36 * cells + 9 * L + 36 * C + 36 * C))
+    else:
+        raise ValueError(f"unknown solver: {solver!r}")
+    state = 4 * (12 * C + 3 * L)
+    nbytes = 2 * state + 4 * 2 * cells + cells
+    return Work(nbytes, 2 * fma, "flops")

@@ -37,6 +37,19 @@ def _stack(wires: Sequence[Wire]) -> Wire:
     return {k: torch.stack([w[k] for w in wires]) for k in wires[0]}
 
 
+def _check_wire(w: Wire, spec: Dict[str, tuple], s: int) -> Wire:
+    """``w``, after checking that stage ``s`` kept the wire's leaves, their
+    shapes and dtypes (``spec``: key → (shape, dtype) of one microbatch).
+    Over ranks a wire travels packed into buffers sized from stage 0's
+    input, so any other layout would be read as other bytes, silently."""
+    got = {k: (tuple(v.shape), v.dtype) for k, v in w.items()}
+    if got != spec:
+        bad = sorted(k for k in set(got) | set(spec) if got.get(k) != spec.get(k))
+        raise ValueError(f"stage {s} changed the wire's leaves {bad}: "
+                         f"{[(k, got.get(k), spec.get(k)) for k in bad]}")
+    return w
+
+
 def pipeline_stages(stage_fns: Sequence[Callable[[Wire], Wire]], xs: Wire, mesh=None,
                     axis: str = STAGE_AXIS) -> Wire:
     """Run ``xs`` (a dict of tensors with leading microbatch dim M) through
@@ -45,10 +58,12 @@ def pipeline_stages(stage_fns: Sequence[Callable[[Wire], Wire]], xs: Wire, mesh=
     rank.  Every rank passes the same ``xs``; stage 0 reads it."""
     S = len(stage_fns)
     M = next(iter(xs.values())).shape[0]
+    keys = list(xs)
+    layout = {k: (tuple(xs[k].shape[1:]), xs[k].dtype) for k in keys}
 
     def compose(x: Wire) -> Wire:
-        for f in stage_fns:
-            x = f(x)
+        for i, f in enumerate(stage_fns):
+            x = _check_wire(f(x), layout, i)
         return x
 
     n = axis_size(mesh, axis)
@@ -60,16 +75,15 @@ def pipeline_stages(stage_fns: Sequence[Callable[[Wire], Wire]], xs: Wire, mesh=
 
     comm = axis_comm(mesh, axis)
     s = comm.index()
-    keys = list(xs)
     dev = xs[keys[0]].device
     # every stage maps the wire to the same leaves: one microbatch's layout
-    spec = [(xs[k].shape[1:], xs[k].dtype) for k in keys]
+    spec = [layout[k] for k in keys]
     nbytes = pack([xs[k][0] for k in keys])[0].numel()
     act, outs = None, []
     for t in range(M + S - 1):
         m = t - s                              # the microbatch at this stage now
         if 0 <= m < M:
-            y = stage_fns[s](_microbatch(xs, m) if s == 0 else act)
+            y = _check_wire(stage_fns[s](_microbatch(xs, m) if s == 0 else act), layout, s)
             if s == S - 1:
                 outs.append(y)
         # one hop: stage r hands what it ran at tick t to stage r + 1

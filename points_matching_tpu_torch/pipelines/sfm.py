@@ -18,10 +18,11 @@ a frame), and the chunk's per-frame stats (once a chunk).
 
 Rows a fixed-capacity append rejects get the position ``capacity``
 (``_append_positions``); every write then goes to a copy with one spare
-row that is sliced off (``_put``), the reference's ``mode="drop"``.
+row that is sliced off (``core/types.put_rows``), the reference's
+``mode="drop"``.
 Rejects are never clamped onto a real slot, where they would race a
 valid write.  Where two valid rows write one slot, the later row wins
-(``_put_last``), as the reference's scatter does on the CPU.
+(``put_rows_last``), as the reference's scatter does on the CPU.
 
 Every step also takes a leading segment axis: a state with fields
 [S, ...] (``init_sfm_state(..., batch=(S,))``) and frames [S, N, ...] are S
@@ -47,7 +48,8 @@ from points_matching_tpu_torch.core.types import (
     CameraIntrinsics,
     Descriptors,
     Pose,
-    flat_rows,
+    put_rows,
+    put_rows_last,
     take,
     take_rows,
 )
@@ -141,34 +143,6 @@ def _append_positions(capacity: int, cursor: Tensor, rows_mask: Tensor) -> Tenso
     return torch.where(ok, pos, capacity).long()
 
 
-def _put(dst: Tensor, pos: Tensor, src) -> Tensor:
-    """``dst`` [*B, n, ...] with rows ``pos`` [*B, m] set to ``src``
-    (broadcast to [*B, m, ...]); rows with pos == n land in a spare row
-    that is sliced off (dropped)."""
-    nb = pos.dim() - 1
-    n, rest = dst.shape[nb], dst.shape[nb + 1:]
-    out = torch.cat([dst, dst.new_zeros((*dst.shape[:nb], 1, *rest))], nb)
-    if not isinstance(src, torch.Tensor):
-        # a Python value written by index would be copied to the device
-        # first, which waits for it
-        src = torch.full((), src, dtype=dst.dtype, device=dst.device)
-    flat = out.view(-1, *rest)
-    flat[flat_rows(pos.long(), n + 1).reshape(-1)] = (
-        src.to(dst.dtype).expand(*pos.shape, *rest).reshape(-1, *rest))
-    return out.narrow(nb, 0, n)
-
-
-def _put_last(dst: Tensor, pos: Tensor, src: Tensor) -> Tensor:
-    """``_put`` where several rows may target one slot: the last such row
-    wins, deterministically."""
-    n = dst.shape[pos.dim() - 1]
-    pos = pos.long()
-    rows = torch.arange(pos.shape[-1], device=pos.device).expand(pos.shape)
-    winner = torch.full((*pos.shape[:-1], n + 1), -1, dtype=torch.long, device=pos.device)
-    winner = winner.scatter_reduce(-1, pos, rows, "amax")
-    return _put(dst, torch.where(winner.gather(-1, pos) == rows, pos, n), src)
-
-
 def _count(mask: Tensor) -> Tensor:
     return mask.sum(-1, dtype=torch.int32)
 
@@ -181,8 +155,8 @@ def _append_obs(state_obs, cam, lm: Tensor, uv: Tensor, ok: Tensor):
     sp = _append_positions(cap, cursor, ok)
     if isinstance(cam, torch.Tensor):
         cam = cam[..., None]
-    return (_put(obs_cam, sp, cam), _put(obs_lm, sp, lm.to(torch.int32)),
-            _put(obs_uv, sp, uv), _put(obs_mask, sp, True),
+    return (put_rows(obs_cam, sp, cam), put_rows(obs_lm, sp, lm.to(torch.int32)),
+            put_rows(obs_uv, sp, uv), put_rows(obs_mask, sp, True),
             torch.clamp_max(cursor + _count(ok), cap).to(torch.int32))
 
 
@@ -256,9 +230,9 @@ def bootstrap_two_view(
     safe = _append_positions(L_cap, state.num_lms, good)
     ok = safe < L_cap
     d_new = _gather(desc1, matches.query_idx, n1)
-    X_new = _put(state.X, safe, X_cam1)
-    lm_mask = _put(state.lm_mask, safe, True)
-    lm_desc = _put(state.lm_desc, safe, d_new)
+    X_new = put_rows(state.X, safe, X_cam1)
+    lm_mask = put_rows(state.lm_mask, safe, True)
+    lm_desc = put_rows(state.lm_desc, safe, d_new)
     num_lms = torch.clamp_max(state.num_lms + _count(good), L_cap).to(torch.int32)
 
     obs = (state.obs_cam, state.obs_lm, state.obs_uv, state.obs_mask, state.num_obs)
@@ -274,8 +248,9 @@ def bootstrap_two_view(
     # track association for frame 2's keypoints: train index → landmark slot
     n2 = kps2_xy.shape[-2]
     t_idx = matches.train_idx.long().clamp(0, n2 - 1)
-    prev_lm = _put_last(torch.full((*lead, n2), -1, dtype=torch.int32, device=kps2_xy.device),
-                        torch.where(ok, t_idx, n2), torch.where(ok, safe, -1).to(torch.int32))
+    prev_lm = put_rows_last(
+        torch.full((*lead, n2), -1, dtype=torch.int32, device=kps2_xy.device),
+        torch.where(ok, t_idx, n2), torch.where(ok, safe, -1).to(torch.int32))
 
     n_new = _count(good)
     new_state = state.replace(
@@ -394,12 +369,12 @@ def _update_map(state: SfMState, kps_xy: Tensor, desc: Tensor, fmask: Tensor,
 
     obs = (state.obs_cam, state.obs_lm, state.obs_uv, state.obs_mask, state.num_obs)
     obs = _append_obs(obs, cam_idx, corr_l, uv, good_obs)
-    lm_desc = _put(state.lm_desc, torch.where(good_obs, corr_l, L), take_rows(desc, corr_q))
+    lm_desc = put_rows(state.lm_desc, torch.where(good_obs, corr_l, L), take_rows(desc, corr_q))
 
     # -- new landmarks: frame ↔ prev matches whose prev keypoint has no
     # landmark and whose query landed no map observation this frame --------
-    has_obs_q = _put(torch.zeros((*lead, n), dtype=torch.bool, device=dev),
-                     torch.where(good_obs, corr_q, n), True)
+    has_obs_q = put_rows(torch.zeros((*lead, n), dtype=torch.bool, device=dev),
+                         torch.where(good_obs, corr_q, n), True)
     cand = a.m2d_mask & ~a.tracked & ~take_rows(has_obs_q, q2)
     uv_c = take_rows(kps_xy, q2)
     uv_p = take_rows(state.prev_kps_xy, p2_)
@@ -422,9 +397,9 @@ def _update_map(state: SfMState, kps_xy: Tensor, desc: Tensor, fmask: Tensor,
 
     lsp = _append_positions(L, state.num_lms, new_ok)
     lok = lsp < L
-    X_new = _put(state.X, lsp, Xn)
-    lm_mask = _put(state.lm_mask, lsp, True)
-    lm_desc = _put(lm_desc, lsp, take_rows(desc, q2))
+    X_new = put_rows(state.X, lsp, Xn)
+    lm_mask = put_rows(state.lm_mask, lsp, True)
+    lm_desc = put_rows(lm_desc, lsp, take_rows(desc, q2))
     num_lms = torch.clamp_max(state.num_lms + _count(new_ok), L).to(torch.int32)
     obs = _append_obs(obs, prev_cam, lsp, uv_p, lok)
     obs = _append_obs(obs, cam_idx, lsp, uv_c, lok)
@@ -434,17 +409,17 @@ def _update_map(state: SfMState, kps_xy: Tensor, desc: Tensor, fmask: Tensor,
     cur = cam_idx.clamp_max(C - 1)
     R_new = torch.where(_lead(registered, pnp.pose.R), pnp.pose.R, take(state.poses.R, cur))
     t_new = torch.where(reg, pnp.pose.t, take(state.poses.t, cur))
-    poses = Pose(R=_put(state.poses.R, slot, R_new[..., None, :, :]),
-                 t=_put(state.poses.t, slot, t_new[..., None, :]))
-    cam_mask = _put(state.cam_mask, slot, reg)
+    poses = Pose(R=put_rows(state.poses.R, slot, R_new[..., None, :, :]),
+                 t=put_rows(state.poses.t, slot, t_new[..., None, :]))
+    cam_mask = put_rows(state.cam_mask, slot, reg)
     num_cams = torch.where(registered, cam_idx + 1, cam_idx).to(torch.int32)
 
     # track associations of this frame's keypoints: map observations keep
     # their landmark, new landmarks get their new slot
     prev_lm_new = torch.full((*lead, n), -1, dtype=torch.int32, device=dev)
-    prev_lm_new = _put_last(prev_lm_new, torch.where(good_obs, corr_q, n),
-                            corr_l.to(torch.int32))
-    prev_lm_new = _put_last(prev_lm_new, torch.where(lok, q2, n), lsp.to(torch.int32))
+    prev_lm_new = put_rows_last(prev_lm_new, torch.where(good_obs, corr_q, n),
+                                corr_l.to(torch.int32))
+    prev_lm_new = put_rows_last(prev_lm_new, torch.where(lok, q2, n), lsp.to(torch.int32))
 
     new_state = state.replace(
         poses=poses, cam_mask=cam_mask, X=X_new, lm_mask=lm_mask, lm_desc=lm_desc,

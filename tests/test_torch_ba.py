@@ -29,7 +29,12 @@ from points_matching_tpu_torch.ba import residuals as tres  # noqa: E402
 from points_matching_tpu_torch.ba import schur as tschur  # noqa: E402
 from points_matching_tpu_torch.ba import sparse as tsp  # noqa: E402
 from points_matching_tpu_torch.core.config import BAConfig  # noqa: E402
-from points_matching_tpu_torch.core.types import CameraIntrinsics, Pose  # noqa: E402
+from points_matching_tpu_torch.core.types import (  # noqa: E402
+    CameraIntrinsics,
+    Pose,
+    put_rows,
+    put_rows_last,
+)
 from points_matching_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from points_matching_tpu_torch.pipelines import sfm as tsfm  # noqa: E402
 
@@ -45,16 +50,19 @@ def _K(K):
                                ((0, 0), (1, 1), (0, 2), (1, 2)))))
 
 
-def _perturb(poses_R, poses_t, X, seed, rot=0.01, trans=0.05, pts=0.05, keep=2):
+def _perturb(poses_R, poses_t, X, seed):
+    """The dense BA tests' start, as ``make_perturbed_ba_problem`` draws it
+    but with numpy, for the JAX package's problems: the first two poses
+    (the gauge) kept."""
     from points_matching_tpu_torch.geometry.se3 import so3_exp
 
     rng = np.random.RandomState(seed)
     C = poses_R.shape[0]
-    dR = so3_exp(_t(rot * rng.randn(C, 3).astype(np.float32))).numpy()
+    dR = so3_exp(_t(0.01 * rng.randn(C, 3).astype(np.float32))).numpy()
     R = dR @ poses_R
-    t = poses_t + trans * rng.randn(C, 3).astype(np.float32)
-    R[:keep], t[:keep] = poses_R[:keep], poses_t[:keep]    # the gauge cameras
-    return R, t, X + pts * rng.randn(*X.shape).astype(np.float32)
+    t = poses_t + 0.05 * rng.randn(C, 3).astype(np.float32)
+    R[:2], t[:2] = poses_R[:2], poses_t[:2]
+    return R, t, X + 0.05 * rng.randn(*X.shape).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -269,6 +277,72 @@ def test_dense_bundle_adjust(dense, solver, cost_rtol, x_atol):
     assert torch.equal(to.poses.t[:2], tstate.poses.t[:2])
 
 
+def test_failed_cholesky_factor_is_a_rejected_step(dense):
+    """A reduced system Cholesky cannot factor (U = −I, no coupling, no
+    damping) gives a NaN step; the LM loop rejects a NaN step: the state
+    and the cost stay as they were and the damping goes up tenfold."""
+    blocks = tschur.NormalEqBlocks(U=-torch.eye(6).expand(3, 6, 6).clone(),
+                                   V=torch.eye(3).expand(8, 3, 3).clone(),
+                                   W=torch.zeros(3, 8, 6, 3), bc=torch.ones(3, 6),
+                                   bl=torch.ones(8, 3))
+    dc, dl = tschur.solve_schur(blocks, torch.tensor(0.0))
+    assert torch.isnan(dc).all() and torch.isnan(dl).all()
+    _, tK = _K(dense["K"])
+    state = tlm.make_ba_state(Pose(R=_t(dense["R"]), t=_t(dense["t"])),
+                              *(_t(dense[k]) for k in ("X", "uv", "mask")))
+    out, st = tlm.lm_loop(state, lambda s: tlm.ba_cost(s, tK),
+                          lambda s, lam: dataclasses.replace(s, X=s.X + dl[0, 0]),
+                          BAConfig(max_iterations=2, rtol=0.0))
+    assert torch.equal(out.X, state.X) and torch.equal(st.final_cost, st.initial_cost)
+    assert int(st.iterations) == 2 and float(st.lam) == pytest.approx(1e-3 * 100)
+
+
+@pytest.mark.parametrize("solver", ["cholesky", "pcg"])
+def test_dense_ba_iteration_work_counts_the_contractions(solver):
+    """``work.dense_ba_iteration_work`` against ``torch.utils.flop_counter``
+    on one LM iteration (a 2-iteration run less a 1-iteration one, rtol 0)
+    at 8 cameras × 128 landmarks: the counter sees the einsums' batched
+    products, so it equals the count less what it cannot see (the
+    broadcast products R·X twice and Jp·R, 36 a cell; the Cholesky factor
+    and solves), within the retraction's 3×3 products it counts (< 0.5 %)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from points_matching_tpu_torch.ops.kernels import work
+
+    C, L = 8, 128
+    st, K = tsyn.make_perturbed_ba_problem(0, C, L)
+    flops = []
+    for it in (1, 2):
+        with FlopCounterMode(display=False) as fc:
+            tlm.bundle_adjust(st, K, BAConfig(max_iterations=it, rtol=0.0, solver=solver))
+        flops.append(fc.get_total_flops())
+    n = 6 * C
+    unseen = 2 * 36 * C * L + (2 * (n ** 3 // 3 + 2 * n * n) if solver == "cholesky" else 0)
+    seen = work.dense_ba_iteration_work(C, L, solver).ops - unseen
+    assert seen <= flops[1] - flops[0] <= 1.005 * seen
+
+
+def test_dense_ba_amplifies_float32_rounding_at_6x64():
+    """Why tests/test_torch_cuda.py holds the dense BA's float32 card run to
+    the CPU against the card's own move under a rounding-sized move of its
+    landmarks, and the fixed bounds of the tests above only in float64, at
+    6 cameras × 64 landmarks: the port alone on the CPU, its landmarks
+    moved by 1e-7 relative (f32 rounding), moves its Cholesky 20-iteration
+    cost by more than 1 % and its first PCG step by more than 1e-3 of the
+    largest update (the reference's gauge masking, as in
+    test_dense_cholesky_reference_amplifies_rounding)."""
+    C, L = 6, 64
+    st, K = tsyn.make_perturbed_ba_problem(0, C, L)
+    st2 = dataclasses.replace(st, X=st.X * (1 + 1e-7 * torch.randn(
+        st.X.shape, generator=torch.Generator().manual_seed(9))))
+    cfg = BAConfig(max_iterations=20, solver="cholesky")
+    c1, c2 = (float(tlm.bundle_adjust(s, K, cfg)[1].final_cost) for s in (st, st2))
+    assert abs(c2 / c1 - 1) > 1e-2, (c1, c2)
+    cfg = BAConfig(max_iterations=1, rtol=0.0, solver="pcg", pcg_iterations=20)
+    d1, d2 = (tlm.bundle_adjust(s, K, cfg)[0].X - s.X for s in (st, st2))
+    assert float((d1 - d2).abs().max()) > 1e-3 * float(d1.abs().max())
+
+
 @pytest.fixture(scope="module")
 def grid_as_list(dense):
     """make_ba_problem's grid (every camera sees every landmark) as an
@@ -317,6 +391,39 @@ def test_grid_from_obs(sparse):
     assert np.array_equal(uv_t.numpy(), np.asarray(uv_j))
 
 
+def test_grid_from_obs_duplicates_last_valid_row_wins():
+    """Duplicate (camera, landmark) pairs, valid and invalid rows mixed (the
+    invalid ones with indices out of range too, and a few valid ones past
+    the grid's last camera or landmark, which the reference's scatter
+    drops): the port's grids equal the reference's, where the last valid
+    row of a pair wins and a pair seen only in invalid rows stays empty."""
+    rng = np.random.RandomState(7)
+    C, L, O = 4, 6, 240
+    cam = rng.randint(0, C, O).astype(np.int32)
+    lm = rng.randint(0, L, O).astype(np.int32)
+    uv = rng.randn(O, 2).astype(np.float32)
+    mask = rng.rand(O) > 0.3
+    only_invalid = (cam == C - 1) & (lm == L - 1)
+    mask[only_invalid] = False
+    cam[~mask & (np.arange(O) % 5 == 0)] = 99
+    lm[~mask & (np.arange(O) % 7 == 0)] = -3
+    past = np.flatnonzero(mask)[[3, 50, 90]]
+    cam[past[0]], lm[past[1]], cam[past[2]] = C, L + 1, -1     # -1 wraps to the spare row
+    args = (cam, lm, uv, mask)
+    uv_j, m_j = jlm.grid_from_obs(*map(jnp.asarray, args), C, L)
+    uv_t, m_t = tlm.grid_from_obs(*map(_t, args), C, L)
+    assert np.array_equal(m_t.numpy(), np.asarray(m_j))
+    assert np.array_equal(uv_t.numpy(), np.asarray(uv_j))
+    # the rule itself, row by row in order
+    want_uv, want_m = np.zeros((C, L, 2), np.float32), np.zeros((C, L), bool)
+    inside = mask & (cam >= 0) & (cam < C) & (lm < L)
+    for o in np.flatnonzero(inside):
+        want_uv[cam[o], lm[o]], want_m[cam[o], lm[o]] = uv[o], True
+    assert np.array_equal(m_t.numpy(), want_m) and np.array_equal(uv_t.numpy(), want_uv)
+    assert only_invalid.any() and not want_m[C - 1, L - 1]
+    assert np.bincount(cam[inside] * L + lm[inside]).max() > 3  # duplicates under test
+
+
 @pytest.mark.parametrize("capacity,cursor", [(64, 0), (64, 40), (64, 64), (16, 3)])
 def test_append_positions_and_drop_scatter(capacity, cursor):
     rng = np.random.RandomState(capacity + cursor)
@@ -328,12 +435,12 @@ def test_append_positions_and_drop_scatter(capacity, cursor):
     assert np.array_equal(pt.numpy(), np.asarray(pj))
     # overflowing and invalid rows are dropped; no real slot is touched twice
     out_j = jnp.asarray(dst).at[pj].set(jnp.asarray(vals), mode="drop")
-    out_t = tsfm._put(_t(dst), pt, _t(vals))
+    out_t = put_rows(_t(dst), pt, _t(vals))
     assert np.array_equal(out_t.numpy(), np.asarray(out_j))
     # duplicate targets: the later row wins, as the reference's CPU scatter
     pos = rng.randint(0, capacity + 1, 48)
     out_j = jnp.asarray(dst).at[jnp.asarray(pos)].set(jnp.asarray(vals), mode="drop")
-    out_t = tsfm._put_last(_t(dst), _t(pos), _t(vals))
+    out_t = put_rows_last(_t(dst), _t(pos), _t(vals))
     assert np.array_equal(out_t.numpy(), np.asarray(out_j))
 
 

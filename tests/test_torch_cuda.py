@@ -1479,6 +1479,120 @@ def test_sparse_ba_float64_on_the_card(dev):
     torch.testing.assert_close(sa.final_cost.cpu(), sc.final_cost, rtol=1e-6, atol=0)
 
 
+def _dense_ba_gaps(a, b):
+    """How far two dense BA results lie apart: the relative cost and the
+    largest |ΔX| and |Δt|."""
+    (oa, sa), (ob, sb) = a, b
+    return (abs(float(sa.final_cost) / float(sb.final_cost.cpu()) - 1),
+            float((oa.X.cpu() - ob.X.cpu()).abs().max()),
+            float((oa.poses.t.cpu() - ob.poses.t.cpu()).abs().max()))
+
+
+# the float32 card-vs-CPU gap may be at most this multiple of the largest
+# gap that the card's own run shows when its landmarks move by 1e-7 or 1e-6
+# relative (six probes): the LM amplifies rounding (the reference's gauge
+# masking), so the gap is measured against that amplification
+DENSE_BA_PROBE_MULTIPLE = 4
+
+
+@pytest.mark.parametrize("solver,cost_rtol,x_atol", [("cholesky", 0.1, 2e-2),
+                                                     ("pcg", 1e-2, 5e-3)])
+def test_dense_ba_gpu_matches_cpu(dev, solver, cost_rtol, x_atol):
+    """``bundle_adjust`` on the card at 6 cameras × 64 landmarks.  In float32
+    (the path): the cost falls 100-fold and stays finite, the gauge cameras
+    stay exactly fixed, two card runs are equal bit for bit, and after 1, 2
+    and 20 LM iterations the card lies from the CPU by at most
+    ``DENSE_BA_PROBE_MULTIPLE`` times the card's own move under a 1e-7 or
+    1e-6 relative move of its landmarks (cost, X, t; at this shape the
+    float32 LM moves past tests/test_torch_ba.py's bounds on the CPU alone
+    under such a move,
+    tests/test_torch_ba.py::test_dense_ba_amplifies_float32_rounding_at_6x64).
+    In float64, against the CPU with tests/test_torch_ba.py's bounds: the
+    first two LM steps (rtol 0) within 1e-3 (cost, and the X and t updates
+    against the largest), the 20-iteration result within the solver's band
+    (10 % Cholesky, 1 % PCG) and X, t within its atol."""
+    from points_matching_tpu_torch.ba.lm import bundle_adjust
+    from points_matching_tpu_torch.core.config import BAConfig
+    from points_matching_tpu_torch.data.synthetic import make_perturbed_ba_problem
+
+    def config(it):
+        rtol = dict(rtol=0.0) if it < 20 else {}
+        return BAConfig(max_iterations=it, solver=solver, pcg_iterations=20, **rtol)
+
+    cfg = config(20)
+    state, K = make_perturbed_ba_problem(0, 6, 64)
+    on_card, Kd = make_perturbed_ba_problem(0, 6, 64, device=dev)
+    g, gs = bundle_adjust(on_card, Kd, cfg)
+    g2, gs2 = bundle_adjust(on_card, Kd, cfg)
+    assert torch.equal(gs.final_cost, gs2.final_cost) and torch.equal(g.X, g2.X)
+    assert torch.equal(g.poses.t, g2.poses.t) and torch.equal(g.poses.R, g2.poses.R)
+    c0, c1 = float(gs.initial_cost), float(gs.final_cost)
+    assert np.isfinite(c1) and c1 < 0.01 * c0 and g.X.is_cuda
+    assert torch.equal(g.poses.t[:2].cpu(), state.poses.t[:2])      # gauge fixed exactly
+    probes = [dataclasses.replace(on_card, X=on_card.X * (1 + eps * torch.randn(
+        on_card.X.shape, generator=torch.Generator().manual_seed(seed)).to(dev)))
+        for eps in (1e-7, 1e-6) for seed in (9, 10, 11)]
+    for it in (1, 2, 20):
+        card = bundle_adjust(on_card, Kd, config(it))
+        gap = _dense_ba_gaps(card, bundle_adjust(state, K, config(it)))
+        moved = [_dense_ba_gaps(bundle_adjust(p, Kd, config(it)), card) for p in probes]
+        for k, name in enumerate(("cost", "X", "t")):
+            most = max(m[k] for m in moved)
+            assert gap[k] <= DENSE_BA_PROBE_MULTIPLE * most, (it, name, gap[k], most)
+
+    state, K = make_perturbed_ba_problem(0, 6, 64, dtype=torch.float64)
+    on_card, Kd = make_perturbed_ba_problem(0, 6, 64, dtype=torch.float64, device=dev)
+    for it in (1, 2):
+        g, gs = bundle_adjust(on_card, Kd, config(it))
+        c, cs = bundle_adjust(state, K, config(it))
+        assert int(gs.iterations) == int(cs.iterations) == it and g.X.dtype == torch.float64
+        torch.testing.assert_close(gs.final_cost.cpu(), cs.final_cost, rtol=1e-3, atol=0)
+        for a, b, start in ((g.X, c.X, state.X), (g.poses.t, c.poses.t, state.poses.t)):
+            d_cpu = b - start
+            torch.testing.assert_close(a.cpu() - start, d_cpu, rtol=0,
+                                       atol=1e-3 * float(d_cpu.abs().max()))
+    g, gs = bundle_adjust(on_card, Kd, cfg)
+    c, cs = bundle_adjust(state, K, cfg)
+    assert float(gs.final_cost) < 0.01 * float(gs.initial_cost)
+    torch.testing.assert_close(gs.final_cost.cpu(), cs.final_cost, rtol=cost_rtol, atol=0)
+    torch.testing.assert_close(g.X.cpu(), c.X, rtol=0, atol=x_atol)
+    torch.testing.assert_close(g.poses.t.cpu(), c.poses.t, rtol=0, atol=x_atol)
+
+
+def test_dense_ba_failed_factor_gives_a_nan_step(dev):
+    """A reduced system Cholesky cannot factor (U = −I, no coupling, no
+    damping): ``cholesky_ex``'s ``info`` turns the step into NaN on the
+    card, which the LM loop rejects (tests/test_torch_ba.py), instead of a
+    step from a partial factor."""
+    from points_matching_tpu_torch.ba import schur
+
+    blocks = schur.NormalEqBlocks(U=-torch.eye(6, device=dev).expand(6, 6, 6).clone(),
+                                  V=torch.eye(3, device=dev).expand(64, 3, 3).clone(),
+                                  W=torch.zeros(6, 64, 6, 3, device=dev),
+                                  bc=torch.ones(6, 6, device=dev),
+                                  bl=torch.ones(64, 3, device=dev))
+    dc, dl = schur.solve_schur(blocks, torch.tensor(0.0, device=dev))
+    assert dc.is_cuda and torch.isnan(dc).all() and torch.isnan(dl).all()
+
+
+def test_grid_from_obs_on_the_card_is_the_cpu_rule(dev):
+    """Duplicate (camera, landmark) pairs, valid and invalid mixed, some
+    rows past the grid: two card runs give the same grids, equal to the
+    CPU's (the last valid row of a pair wins)."""
+    from points_matching_tpu_torch.ba.lm import grid_from_obs
+
+    g = torch.Generator().manual_seed(7)
+    C, L, O = 16, 64, 20000
+    cam, lm = torch.randint(0, C, (O,), generator=g), torch.randint(0, L, (O,), generator=g)
+    uv, mask = torch.randn(O, 2, generator=g), torch.rand(O, generator=g) > 0.3
+    cam[::1009], lm[5::1013] = C, L + 1         # rows past the grid, dropped
+    want = grid_from_obs(cam, lm, uv, mask, C, L)
+    on_card = [grid_from_obs(cam.to(dev), lm.to(dev), uv.to(dev), mask.to(dev), C, L)
+               for _ in range(2)]
+    for uv_g, m_g in on_card:
+        assert torch.equal(uv_g.cpu(), want[0]) and torch.equal(m_g.cpu(), want[1])
+
+
 @pytest.mark.parametrize("solver", ["dense", "pcg"])
 def test_pose_graph_is_reproducible_and_scatter_free(dev, solver):
     """``optimize_pose_graph`` on the card reaches no scatter-add and gives

@@ -221,14 +221,21 @@ def test_fault_hook_perturbs_psum(ranks):
 
 # -- all pairs ---------------------------------------------------------------
 
-@pytest.mark.parametrize("ws", [2, 4])
-def test_ring_all_pairs_matches_single_process_and_jax(ranks, problems, ws):
-    four, _ = ranks
+@pytest.fixture(scope="module")
+def ring_refs(problems):
+    """The single-process scores and the reference's 8-way ring, once for
+    every world size."""
     desc, mask = (torch.from_numpy(problems[k]) for k in ("desc", "mask"))
-    single = all_pairs_scores(desc, mask, RATIO)
     mesh = make_mesh((8,), (DATA_AXIS,))
-    ref = _np(j_all_pairs(jnp.asarray(problems["desc"]), jnp.asarray(problems["mask"]),
-                          mesh=mesh, ratio=RATIO))
+    return (all_pairs_scores(desc, mask, RATIO),
+            _np(j_all_pairs(jnp.asarray(problems["desc"]), jnp.asarray(problems["mask"]),
+                            mesh=mesh, ratio=RATIO)))
+
+
+@pytest.mark.parametrize("ws", [2, 4])
+def test_ring_all_pairs_matches_single_process_and_jax(ranks, ring_refs, ws):
+    four, _ = ranks
+    single, ref = ring_refs
     for res in four:
         got = res["ring"][f"ws{ws}"]
         assert torch.equal(got, single)
@@ -267,9 +274,21 @@ def _jax_sparse(problems, name, cfg):
     return j_dist_sparse(js[name], js["K"], make_mesh((8,), (MODEL_AXIS,)), jc.BAConfig(**cfg))
 
 
+@pytest.fixture(scope="module")
+def sparse_refs(problems):
+    """The sharded sparse BA's references, once for every world size: the
+    port's one process (float64 for both problems; float32 for both) and
+    the reference's 8-way runs (float32)."""
+    cfgs = dict(one=ONE_ITER, ragged=RAGGED)
+    return dict(
+        float64={n: _port_sparse(problems, n, c, torch.float64) for n, c in cfgs.items()},
+        float32={n: _port_sparse(problems, n, c) for n, c in cfgs.items()},
+        jax={n: _jax_sparse(problems, n, c) for n, c in cfgs.items()})
+
+
 @pytest.mark.parametrize("ws", [2, 4])
 @pytest.mark.parametrize("name,cfg", [("one", ONE_ITER), ("ragged", RAGGED)])
-def test_sharded_sparse_ba_is_exact_in_float64(ranks, problems, ws, name, cfg):
+def test_sharded_sparse_ba_is_exact_in_float64(ranks, sparse_refs, ws, name, cfg):
     """In float64 the observation-sharded sums equal one process's to
     rounding (cost rtol 1e-9, X atol 1e-9): the sharding, the masked
     padding of the ragged case (O does not divide 4) and the reductions are
@@ -277,7 +296,7 @@ def test_sharded_sparse_ba_is_exact_in_float64(ranks, problems, ws, name, cfg):
     iteration: 50 PCG steps amplify the reductions' rounding (the f32 cost
     itself is 2e-3 from the f64 one on this problem)."""
     four, _ = ranks
-    out, st = _port_sparse(problems, name, cfg, torch.float64)
+    out, st = sparse_refs["float64"][name]
     for res in four:
         got = res["sparse_ba"][f"{name}_ws{ws}_float64"]
         assert got["iterations"] == int(st.iterations)
@@ -287,15 +306,15 @@ def test_sharded_sparse_ba_is_exact_in_float64(ranks, problems, ws, name, cfg):
 
 
 @pytest.mark.parametrize("ws", [2, 4])
-def test_sharded_sparse_ba_one_iteration(ranks, problems, ws):
+def test_sharded_sparse_ba_one_iteration(ranks, sparse_refs, ws):
     """One float32 LM iteration against one process and against the
     reference's observation-sharded BA on 8 devices: cost rtol 3e-3, X atol
     1e-3 (measured: 5.1e-4 from one process; the port's one process is
     1.0e-3 from the reference's, whose own 8-way run is 1.0e-4 from its one
     device)."""
     four, _ = ranks
-    out, st = _port_sparse(problems, "one", ONE_ITER)
-    jout, jst = _jax_sparse(problems, "one", ONE_ITER)
+    out, st = sparse_refs["float32"]["one"]
+    jout, jst = sparse_refs["jax"]["one"]
     for res in four:
         got = res["sparse_ba"][f"one_ws{ws}_float32"]
         assert got["iterations"] == 1
@@ -310,14 +329,14 @@ def test_sharded_sparse_ba_one_iteration(ranks, problems, ws):
 
 
 @pytest.mark.parametrize("ws", [2, 4])
-def test_sharded_sparse_ba_pads_ragged_observation_axis(ranks, problems, ws):
+def test_sharded_sparse_ba_pads_ragged_observation_axis(ranks, sparse_refs, ws):
     """The counterpart of tests/test_sparse_ba.py's ragged case in float32:
     4 iterations, final cost within 1e-2 of one process and of the
     reference's 8-way run (measured 2.9e-3; exactness is the float64
     test's)."""
     four, _ = ranks
-    _, st = _port_sparse(problems, "ragged", RAGGED)
-    _, jst = _jax_sparse(problems, "ragged", RAGGED)
+    _, st = sparse_refs["float32"]["ragged"]
+    _, jst = sparse_refs["jax"]["ragged"]
     for res in four:
         got = res["sparse_ba"][f"ragged_ws{ws}_float32"]
         assert got["final_cost"] < got["initial_cost"]
@@ -343,8 +362,21 @@ def _port_dense(problems, it):
                          BAConfig(max_iterations=it))
 
 
+@pytest.fixture(scope="module")
+def dense_refs(problems):
+    """For 1 and 5 LM iterations, once for every world size: the port's one
+    process, the reference's 8-way landmark-sharded run and its one
+    device."""
+    js = problems["jax_state"]
+    mesh = make_mesh((1, 8), (DATA_AXIS, MODEL_AXIS))
+    return {it: (*_port_dense(problems, it),
+                 j_dist_ba(js["dense"], js["K_dense"], mesh, jc.BAConfig(max_iterations=it)),
+                 j_bundle_adjust(js["dense"], js["K_dense"], jc.BAConfig(max_iterations=it))[1])
+            for it in (1, 5)}
+
+
 @pytest.mark.parametrize("ws", [2, 4])
-def test_sharded_dense_ba_matches_single_process_and_jax(ranks, problems, ws):
+def test_sharded_dense_ba_matches_single_process_and_jax(ranks, dense_refs, ws):
     """tests/test_parallel.py's tolerances against the port's one process:
     one LM iteration to rtol 1e-4 in cost and 1e-3 in X; after 5, where
     accept/reject may flip on rounding, both costs fall and agree to 10 %.
@@ -352,12 +384,8 @@ def test_sharded_dense_ba_matches_single_process_and_jax(ranks, problems, ws):
     iteration is held to rtol 1e-3: the two packages' one-process costs are
     2.3e-4 apart already (f32 Cholesky of the reduced system)."""
     four, _ = ranks
-    js = problems["jax_state"]
-    mesh = make_mesh((1, 8), (DATA_AXIS, MODEL_AXIS))
     for it in (1, 5):
-        out, st = _port_dense(problems, it)
-        jout, jst = j_dist_ba(js["dense"], js["K_dense"], mesh, jc.BAConfig(max_iterations=it))
-        jref = j_bundle_adjust(js["dense"], js["K_dense"], jc.BAConfig(max_iterations=it))[1]
+        out, st, (jout, jst), jref = dense_refs[it]
         for res in four:
             got = res["dense_ba"][f"ws{ws}_it{it}"]
             assert got["final_cost"] < got["initial_cost"]
@@ -404,6 +432,19 @@ def test_pipeline_stages_equal_the_composition(ranks, problems, stages, mb):
         assert set(got) == set(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+def test_pipeline_stage_that_changes_the_wire_raises():
+    """Every stage must keep the wire's leaves, shapes and dtypes (over ranks
+    the wire travels in buffers sized from stage 0's input): a stage that
+    changes a dtype or a shape, or drops a leaf, raises with the leaf's
+    name, on one process as on a mesh."""
+    xs = {"a": torch.zeros(2, 3), "b": torch.zeros(2, 4, dtype=torch.int32)}
+    for bad, leaf in ((lambda w: dict(w, a=w["a"].double()), "a"),
+                      (lambda w: dict(w, b=w["b"][:2]), "b"),
+                      (lambda w: {"a": w["a"]}, "b")):
+        with pytest.raises(ValueError, match=f"stage 1 changed the wire's leaves \\['{leaf}'\\]"):
+            pipeline_stages([lambda w: dict(w), bad], xs)
 
 
 def test_pipeline_stage_count_mismatch_raises(ranks):
